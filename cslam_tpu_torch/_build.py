@@ -32,7 +32,8 @@ _I = ctypes.c_int
 # C signatures of the library's entry points: (argtypes, restype)
 SIGNATURES = {
     "cosine_topk_launch": ([_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _P, _P, _P, _P, _P], _I),
+                            _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P],
+                           _I),
 }
 
 _lib = None

@@ -19,6 +19,14 @@ _INITIAL_CAPACITY = 1024
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def _to_host(idx, sims, k_eff: int):
+    """The first k_eff columns of (B, k) int32 indices and float32 sims
+    as numpy, in one device-to-host copy (sims travel as int32 bits)."""
+    both = torch.cat([idx[:, :k_eff], sims[:, :k_eff].view(torch.int32)],
+                     dim=1).cpu().numpy()
+    return both[:, :k_eff], both[:, k_eff:].view(np.float32)
+
+
 class DescriptorDatabase:
     """Append-only descriptor store with brute-force cosine kNN."""
 
@@ -112,12 +120,10 @@ class DescriptorDatabase:
         length min(k, n)."""
         if self.n == 0:
             return [], np.array([])
-        k_eff = min(k, self.n)
-        idx, sims = self._topk(self._query_tensor(query),
-                               min(k, self._capacity))
-        idx = idx[0, :k_eff].cpu().numpy()
-        sims = sims[0, :k_eff].cpu().numpy()
-        return [self.items[int(i)] for i in idx], sims
+        idx, sims = _to_host(*self._topk(self._query_tensor(query),
+                                         min(k, self._capacity)),
+                             min(k, self.n))
+        return [self.items[int(i)] for i in idx[0]], sims[0]
 
     def search_best(self, query):
         """Single nearest item; (None, None) when empty."""
@@ -130,10 +136,8 @@ class DescriptorDatabase:
         """Batched search: (B, dim) queries -> (B, k') items and sims."""
         if self.n == 0:
             return [], np.zeros((0, 0))
-        k_eff = min(k, self.n)
-        idx, sims = self._topk(self._query_tensor(queries),
-                               min(k, self._capacity))
-        idx = idx[:, :k_eff].cpu().numpy()
-        sims = sims[:, :k_eff].cpu().numpy()
+        idx, sims = _to_host(*self._topk(self._query_tensor(queries),
+                                         min(k, self._capacity)),
+                             min(k, self.n))
         items = [[self.items[int(i)] for i in row] for row in idx]
         return items, sims

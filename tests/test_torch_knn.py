@@ -142,6 +142,71 @@ def test_plain_ties_keep_lower_row_and_pad_missing():
     assert np.all(sims[0, 6:] == np.float32(tkp.NEG_LARGE))
 
 
+def _plain_in_passes(data, n_valid, queries, k):
+    """The kernel's k > KMAX composition, driven on the CPU: passes of
+    at most KMAX by the after-gated plain version."""
+    data, queries = _t(data), _t(queries)
+    inv, bias, q_n = tkp.prepare_inputs(data, n_valid, queries)
+
+    def one_pass(dst_i, dst_v, after):
+        i, v = tkp.cosine_topk_plain(data, n_valid, q_n, inv, bias,
+                                     dst_i.shape[1], after=after)
+        dst_i.copy_(i)
+        dst_v.copy_(v)
+
+    idx, sims = tkp.topk_in_passes(one_pass, queries.shape[0], k, "cpu")
+    return idx.numpy(), sims.numpy()
+
+
+@pytest.mark.parametrize("n_valid,k", [(300, 65), (300, 130), (100, 130),
+                                       (64, 65)])
+def test_passes_compose_to_the_plain_top_k(n_valid, k):
+    """k > KMAX as the card serves it (ceil(k / 64) after-gated passes)
+    equals the one-pass plain top-k exactly, k > n_valid included."""
+    rng = np.random.default_rng(20)
+    data = rng.standard_normal((384, 24)).astype(np.float32)
+    queries = rng.standard_normal((4, 24)).astype(np.float32)
+    idx, sims = _plain_in_passes(data, n_valid, queries, k)
+    ref_idx, ref_sims = _port_pallas(data, n_valid, queries, k)
+    np.testing.assert_array_equal(idx, ref_idx)
+    np.testing.assert_array_equal(sims, ref_sims)
+    n_eff = min(k, n_valid)
+    assert np.all(sims[:, n_eff:] == np.float32(tkp.NEG_LARGE))
+    assert np.all(idx[:, n_eff:] == 0)
+
+
+def test_passes_match_reference_pallas_above_kmax():
+    """The reference serves k = 80 (its Pallas kernel in interpret mode);
+    the port's one-pass plain version and its two-pass composition give
+    the same top-80."""
+    rng = np.random.default_rng(21)
+    N, n_valid, D, B, k = 256, 200, 32, 3, 80
+    data = rng.standard_normal((N, D)).astype(np.float32)
+    queries = rng.standard_normal((B, D)).astype(np.float32)
+    ref_idx, ref_sims = _pallas_interpret(jnp.asarray(data), n_valid,
+                                          jnp.asarray(queries), k,
+                                          tile_rows=128)
+    ref_idx, ref_sims = np.asarray(ref_idx), np.asarray(ref_sims)
+    for idx, sims in (_port_pallas(data, n_valid, queries, k),
+                      _plain_in_passes(data, n_valid, queries, k)):
+        _assert_same_topk(idx, sims, ref_idx, ref_sims, k, F32_TOL)
+
+
+def test_passes_keep_the_lower_row_across_a_pass_boundary():
+    """100 tied rows: the first pass ends on row 63 and the second starts
+    at row 64, lower rows first, then the missing slots."""
+    data = np.ones((128, 4), np.float32)
+    data[100:] = -1.0  # below the tie
+    idx, sims = _plain_in_passes(data, 110, np.ones((2, 4), np.float32),
+                                 120)
+    np.testing.assert_array_equal(idx[:, :110],
+                                  np.tile(np.arange(110), (2, 1)))
+    np.testing.assert_allclose(sims[:, :100], 1.0, atol=1e-6)
+    np.testing.assert_allclose(sims[:, 100:110], -1.0, atol=1e-6)
+    assert np.all(sims[:, 110:] == np.float32(tkp.NEG_LARGE))
+    assert np.all(idx[:, 110:] == 0)
+
+
 @pytest.mark.parametrize("n_valid", [1, 900, 2048])
 def test_xla_paths_match_reference(n_valid):
     """cosine_topk / _blocked / _streamed / _approx against the
