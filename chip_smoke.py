@@ -24,15 +24,27 @@ Phases, each printing one JSON line with its own elapsed_s:
      storage, through the tensor-core kernel (launches counted over this
      ingestion alone), against the same ingestion through the plain
      version on the CPU and through the exact search;
+  7. mission: the sim mission of tests/test_e2e_swarm.py through the swarm
+     protocol (cslam_tpu_torch.sim_mission: SwarmNode, bus, gossip,
+     broker election, brokerage, simulated verification, decentralized
+     PGO on a worker thread) at 4 robots x 1000 keyframes, 512-d
+     descriptors: per-stage wall seconds, the f32 kernel's launches over
+     this phase alone, the protocol's counts, ATE per robot, the host
+     time of one to_arrays of the aggregated graph. It runs under a
+     watchdog that dumps every thread's stack and exits non-zero if the
+     phase stalls, waits on each solve with a timeout, and fails if a
+     non-daemon thread outlives it;
 then the kernels line, the card line, and the result line.
 
 Exits non-zero, printing no result, without a CUDA card, without the
 package, or when any phase fails. Uses no JAX.
 """
 
+import faulthandler
 import json
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -53,6 +65,10 @@ KNN_SOURCE = "cslam_tpu_torch/csrc/cosine_topk.cu"
 # between its two bf16 lowerings (the exact path rounds the raw query to
 # bf16, the kernel the normalized one; tests/test_torch_knn.py)
 BF16_LOWERINGS_TOL = 5e-3
+# the mission phase: the shape of benchmarks/SCALE_MISSION.json, the
+# sim mission's settings; a stalled phase is ended by the watchdog
+MISSION = dict(n_robots=4, n_poses=1000, descriptor_dim=512)
+MISSION_WATCHDOG_S = 480
 
 
 def emit(obj):
@@ -301,6 +317,39 @@ def reset_launches(kp):
         kp.cosine_topk_pallas.launches[name] = 0
 
 
+def live_non_daemon_threads():
+    """Threads other than the main one that would keep the interpreter
+    from exiting."""
+    return [t.name for t in threading.enumerate()
+            if t is not threading.main_thread() and not t.daemon
+            and t.is_alive()]
+
+
+def check_mission(res):
+    """The mission phase's gates; raises on the first that fails."""
+    if res["knn_launches"]["cosine_topk_f32"] <= 0:
+        raise AssertionError("the mission never launched the f32 kernel")
+    if not res["fixed_edges"]:
+        raise AssertionError("the mission verified no loop closure")
+    if res["optimization_count"][0] < 1:
+        raise AssertionError("robot 0 (the optimizer) never optimized")
+    # every robot that received estimates for all its poses improves on
+    # its odometry; robot 1 must be among them (tests/test_e2e_swarm.py)
+    with_estimates = [r for r, (_, opt) in res["ate"].items()
+                      if opt is not None]
+    if 1 not in with_estimates:
+        raise AssertionError(f"robot 1 received no estimates "
+                             f"(robots with estimates: {with_estimates})")
+    for rid in with_estimates:
+        odo, opt = res["ate"][rid]
+        if not opt < odo:
+            raise AssertionError(f"robot {rid}: optimized ATE {opt} is not "
+                                 f"below odometry ATE {odo}")
+    if res["threads_left"]:
+        raise AssertionError(f"non-daemon threads outlived the mission: "
+                             f"{res['threads_left']}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -465,6 +514,27 @@ def main():
     if vs_plain["unexplained"] or vs_exact["unexplained"]:
         raise AssertionError("bf16 kernel ingestion found other candidates")
 
+    # 7. the mission through SwarmNode (f32 storage: the f32 kernel)
+    from cslam_tpu_torch.sim_mission import run_mission
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    faulthandler.dump_traceback_later(MISSION_WATCHDOG_S, exit=True)
+    try:
+        reset_launches(kp)
+        mission = run_mission(**MISSION, seed=SEED, device="cuda")
+        mission["knn_launches"] = dict(kp.cosine_topk_pallas.launches)
+        mission["threads_left"] = live_non_daemon_threads()
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    phase("mission", t0, robots=MISSION["n_robots"],
+          keyframes_per_robot=MISSION["n_poses"],
+          descriptor_dim=MISSION["descriptor_dim"],
+          max_memory_allocated=torch.cuda.max_memory_allocated(),
+          card=card, **dict(mission,
+                            fixed_edges=len(mission["fixed_edges"])))
+    check_mission(mission)
+
     def entry(name, main, n_launches):
         return {"name": name, "route": "cuda", "source": KNN_SOURCE,
                 "replaces": KNN_REPLACES, "launches": n_launches,
@@ -473,9 +543,12 @@ def main():
                 "bound_by": main["bound_by"],
                 "library_ms": main["library_ms"], "checked": True}
 
+    f32 = entry("cosine_topk_f32", timing["main_f32"],
+                launches["cosine_topk_f32"])
+    f32["mission_launches"] = mission["knn_launches"]["cosine_topk_f32"]
+
     emit({"kernels": [
-        entry("cosine_topk_f32", timing["main_f32"],
-              launches["cosine_topk_f32"]),
+        f32,
         entry("cosine_topk_bf16_mma", timing["main_bf16"],
               launches_bf16["cosine_topk_bf16_mma"])]})
     emit({"total_elapsed_s": round(time.perf_counter() - T_START, 3)})

@@ -1,20 +1,24 @@
 """Synthetic swarm world: trajectories, place-dependent descriptors and
-simulated loop-closure measurements for hardware-free runs.
+a simulated sensor handler for hardware-free runs.
 
-Port of the device-free part of cslam_tpu/frontend/sim.py:
-`SyntheticWorld` with the same numpy RNG draw order (one seed gives both
-packages the same world), and the relative-pose measurement of the
-reference's `SimSensorHandler._measure` as a plain function. The bus
-handler itself belongs to the protocol layer, which this port does not
-hold yet. The world is host-side numpy; its SE(3) exponentials run on
-the CPU through the port's se3 ops.
+Port of the swarm part of cslam_tpu/frontend/sim.py: `SyntheticWorld`
+with the same numpy RNG draw order (one seed gives both packages the
+same world), the relative-pose measurement as a plain function
+(`measure`), and `SimSensorHandler`, which answers local-descriptor
+requests on the bus and verifies candidate loop closures from ground
+truth (its per-robot noise stream is `default_rng(robot_id + 7)`, as in
+the reference, so noisy measurements match). The world is host-side
+numpy; its SE(3) exponentials run on the CPU through the port's se3
+ops. The rendered visual scenes of the reference module belong to the
+visual front-end, which is not ported yet.
 """
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from cslam_tpu_torch.comm import messages as msgs
 from cslam_tpu_torch.ops import se3
 
 
@@ -107,3 +111,100 @@ def measure(world: SyntheticWorld, rid0: int, kf0: int, rid1: int, kf1: int,
         trel = trel + dt
     dist = float(np.linalg.norm(t1 - t0))
     return Rrel.astype(np.float32), trel.astype(np.float32), dist
+
+
+class SimSensorHandler:
+    """Protocol-level sensor handler for the synthetic world: serves
+    local-descriptor requests and verifies loop-closure candidates from
+    ground truth (success iff true distance < gate)."""
+
+    def __init__(self, params: Dict, bus, world: SyntheticWorld,
+                 verification_gate: float = 5.0,
+                 measurement_noise: float = 0.0):
+        self.params = params
+        self.bus = bus
+        self.world = world
+        self.robot_id = params["robot_id"]
+        self.verification_gate = verification_gate
+        self.measurement_noise = measurement_noise
+        self._rng = np.random.default_rng(self.robot_id + 7)
+        self.local_keyframes: List[int] = []
+        # per-verification ground-truth record (this robot verified the
+        # pair): success flag + TRUE distance
+        self.verification_log: List[Dict] = []
+
+        bus.subscribe("cslam/local_descriptors_request",
+                      self.on_local_descriptors_request)
+        bus.subscribe("/cslam/sim_local_descriptors",
+                      self.on_local_descriptors)
+        bus.subscribe("cslam/local_keyframe_match",
+                      self.on_local_keyframe_match)
+        self.local_descriptors_publisher = bus.create_publisher(
+            "/cslam/sim_local_descriptors")
+        self.inter_lc_publisher = bus.create_publisher(
+            "/cslam/inter_robot_loop_closure")
+        self.intra_lc_publisher = bus.create_publisher(
+            "cslam/intra_robot_loop_closure")
+
+    def on_local_descriptors_request(self,
+                                     req: msgs.LocalDescriptorsRequest):
+        """Transmit 'local descriptors' (here: the keyframe id; geometry
+        comes from the shared world) to all robots (reference
+        rgbd_handler.cpp:561-590)."""
+        self.local_descriptors_publisher.publish(
+            msgs.LocalDescriptorsRequest(
+                keyframe_id=req.keyframe_id * self.world.n_robots +
+                self.robot_id,  # encode (rid, kf) in one int
+                matches_robot_id=list(req.matches_robot_id),
+                matches_keyframe_id=list(req.matches_keyframe_id)))
+
+    def _measure(self, rid0, kf0, rid1, kf1):
+        """Ground-truth relative pose with optional noise."""
+        return measure(self.world, rid0, kf0, rid1, kf1,
+                       self.measurement_noise, self._rng)
+
+    def on_local_descriptors(self, msg: msgs.LocalDescriptorsRequest):
+        """Verify each candidate addressed to me (reference
+        rgbd_handler.cpp:657-726)."""
+        sender_rid = msg.keyframe_id % self.world.n_robots
+        sender_kf = msg.keyframe_id // self.world.n_robots
+        if sender_rid == self.robot_id:
+            return
+        for rid, kf in zip(msg.matches_robot_id, msg.matches_keyframe_id):
+            if rid != self.robot_id:
+                continue
+            Rrel, trel, dist = self._measure(sender_rid, sender_kf, rid, kf)
+            success = dist < self.verification_gate
+            self.verification_log.append(
+                {"r0": int(sender_rid), "k0": int(sender_kf),
+                 "r1": int(rid), "k1": int(kf),
+                 "success": bool(success),
+                 "distance": round(float(dist), 3)})
+            if sender_rid < rid:
+                r0, k0, r1, k1 = sender_rid, sender_kf, rid, kf
+                pose = (Rrel, trel)
+            else:
+                r0, k0, r1, k1 = rid, kf, sender_rid, sender_kf
+                pose = (Rrel.T, (-Rrel.T @ trel).astype(np.float32))
+            self.inter_lc_publisher.publish(
+                msgs.InterRobotLoopClosure(
+                    robot0_id=r0, robot0_keyframe_id=k0, robot1_id=r1,
+                    robot1_keyframe_id=k1, success=success, pose=pose,
+                    covariance_diag=self._measurement_covariance()))
+
+    def on_local_keyframe_match(self, msg: msgs.LocalKeyframeMatch):
+        Rrel, trel, dist = self._measure(self.robot_id, msg.keyframe0_id,
+                                         self.robot_id, msg.keyframe1_id)
+        self.intra_lc_publisher.publish(
+            msgs.IntraRobotLoopClosure(
+                keyframe0_id=msg.keyframe0_id,
+                keyframe1_id=msg.keyframe1_id,
+                success=dist < self.verification_gate, pose=(Rrel, trel),
+                covariance_diag=self._measurement_covariance()))
+
+    def _measurement_covariance(self):
+        """The sim knows its own measurement noise exactly — stamp it as
+        the per-factor covariance (the real handlers stamp the
+        registration estimate covariance, rgbd_handler.cpp:623/:703)."""
+        var = max(self.measurement_noise, 1e-3) ** 2
+        return np.full(6, var, dtype=np.float32)

@@ -138,6 +138,18 @@ def _swap_batch(sel, add_idx, rem_idx, swap_k):
     return sels, aa, rr
 
 
+def _fw_step(w, s, it: int):
+    """The Frank-Wolfe step w + alpha (s - w), alpha = 2 / (it + 2), with
+    one rounding, as the reference's compiled step (a fused multiply-add
+    on its CPU backend): the product of two f32 values is exact in f64,
+    so the f64 sum rounds once to f32. Candidates picked at different
+    iterations can reach equal w in exact arithmetic (7/15 and 7/15);
+    the rounding of this step then decides which one the tie-break keeps,
+    so it must round as the reference does (a mul then an add did not)."""
+    alpha = float(np.float32(2.0) / np.float32(it + 2.0))
+    return (w.double() + alpha * (s - w).double()).float()
+
+
 def _fw_subset(L_fixed, e_i, e_j, weights, valid, node_mask, w_init,
                duality_gap_tol, fixed_e_i=None, fixed_e_j=None,
                fixed_w=None, *, k, max_iters, num_nodes,
@@ -210,7 +222,7 @@ def _fw_subset(L_fixed, e_i, e_j, weights, valid, node_mask, w_init,
         u = torch.minimum(u, lam2 + torch.dot(grad, s - w))
         done = bool((u - lam2) < duality_gap_tol)
         if not done:
-            w = w + (2.0 / (it + 2.0)) * (s - w)
+            w = _fw_step(w, s, it)
         it += 1
 
     # tie-break rounding: primary key w, secondary key original weight

@@ -1,6 +1,7 @@
 """The port on an NVIDIA card: the CUDA kernel against its plain version,
-the kernel behind DescriptorDatabase(method="pallas"), and the slice on
-the card against the same slice on the CPU.
+the kernel behind DescriptorDatabase(method="pallas"), the slice on the
+card against the same slice on the CPU, and the sim mission through
+SwarmNode on the card against the same mission on the CPU.
 
 Every test here needs a card: marked `cuda`, skipped (in a fixture, not
 at import) where there is none. On the card, without JAX installed:
@@ -236,3 +237,24 @@ def test_slice_on_card_matches_cpu(cuda):
     assert on_card["loop_closures"] == on_cpu["loop_closures"]
     assert on_card["ate_opt"] == pytest.approx(on_cpu["ate_opt"], abs=1e-3)
     assert on_card["ate_opt"] < on_card["ate_odom"]
+
+
+def test_mission_on_card(cuda):
+    """The sim mission through SwarmNode on the card (2 robots x 24
+    keyframes): descriptor searches launch the kernel, the optimizer
+    solves, the estimate beats odometry, no worker thread is left; the
+    same mission on the CPU verifies the same loop closures."""
+    import threading
+    from cslam_tpu_torch.sim_mission import run_mission
+    for name in kp.cosine_topk_pallas.launches:
+        kp.cosine_topk_pallas.launches[name] = 0
+    on_card = run_mission(2, 24, device=cuda)
+    assert kp.cosine_topk_pallas.launches["cosine_topk_f32"] > 0
+    assert on_card["optimization_count"][0] >= 1
+    odo, opt = on_card["ate"][1]
+    assert opt < odo
+    assert not [t for t in threading.enumerate()
+                if t is not threading.main_thread() and not t.daemon]
+    on_cpu = run_mission(2, 24, device="cpu")
+    assert on_card["fixed_edges"] == on_cpu["fixed_edges"]
+    assert opt == pytest.approx(on_cpu["ate"][1][1], abs=1e-3)
