@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Phases, each printing one JSON line with its own elapsed_s:
-  1. device: card name, power limit, count; fp32 matmuls without TF32;
+  1. device: card name, power limit, count; fp32 matmuls and cuDNN
+     convolutions without TF32 after the port's resolve_device;
   2. build: the CUDA kernels, compiled with nvcc from the checkout, and
      the tensor-core (HMMA) instructions of each kernel in its SASS (the
      bf16 kernel must have them, the f32 kernel none: never TF32);
@@ -34,6 +35,22 @@ Phases, each printing one JSON line with its own elapsed_s:
      watchdog that dumps every thread's stack and exits non-zero if the
      phase stalls, waits on each solve with a timeout, and fails if a
      non-daemon thread outlives it;
+  8. descriptor: keyframe images through the global-descriptor path —
+     GlobalDescriptorComponent built from params on the in-process bus
+     (shipped CosPlace, ResNet-18 at full widths, crop 224, batches of
+     64) for 4 robots x 1000 rendered 120x160 keyframes (a pool of 256
+     distinct renders, cycled): images/s end to end, the host
+     preprocessing share, the device ms per 64-image forward (CUDA
+     events) against its operations bound, 8 of the descriptors against
+     the same model on the CPU (bf16 and f32), and the NetVLAD forward;
+  9. place_recognition: the reference's quality gates on the card with
+     top-1 from DescriptorDatabase(method="pallas") (the kernel at
+     D = 64 and D = 128): CosPlace recall@1 over 3 held-out worlds, and
+     its margin over the same network at random init; NetVLAD + PCA
+     recall@1; then a loop-closure detector built from params (no
+     descriptor_model, so it builds CosPlace on the card) fed the
+     descriptors robot 0 published and robot 1's as gossip, which must
+     find every repeated view; the kernel's launches of this phase;
 then the kernels line, the card line, and the result line.
 
 Exits non-zero, printing no result, without a CUDA card, without the
@@ -48,6 +65,7 @@ import threading
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 T_START = time.perf_counter()
@@ -69,6 +87,26 @@ BF16_LOWERINGS_TOL = 5e-3
 # sim mission's settings; a stalled phase is ended by the watchdog
 MISSION = dict(n_robots=4, n_poses=1000, descriptor_dim=512)
 MISSION_WATCHDOG_S = 480
+# the descriptor phase: the mission's keyframe count, rendered views
+# (a pool cycled with a per-robot offset), the component's batches
+DESCRIPTOR = dict(n_robots=4, keyframes_per_robot=1000, pool=256,
+                  batch_size=64, robot_offset=64)
+# descriptors against the same model on the CPU: the tolerances of
+# tests/test_torch_models.py (f32 max abs; bf16 max abs and cosine)
+MODEL_TOL = {torch.float32: (1e-5, None), torch.bfloat16: (2e-3, 0.9999)}
+# the descriptor models' searches, timed beside the slice's
+DESC_SHAPES = {
+    # the detector's intra-robot search over 1000 CosPlace keyframes
+    "detector_d64_f32": (dict(n_cap=1024, n_valid=1000, dim=64, batch=1,
+                              k=5), torch.float32),
+    "detector_d64_bf16": (dict(n_cap=1024, n_valid=1000, dim=64, batch=1,
+                               k=5), torch.bfloat16),
+    # recall@1: every view of a world against the others (top-2)
+    "recall_d64_f32": (dict(n_cap=1024, n_valid=48, dim=64, batch=48, k=2),
+                       torch.float32),
+    "recall_d128_f32": (dict(n_cap=1024, n_valid=32, dim=128, batch=32,
+                             k=2), torch.float32),
+}
 
 
 def emit(obj):
@@ -312,6 +350,17 @@ def time_knn(kp, inputs, n_valid, k, iters):
     return ms, device_ms, host_ms, plain_ms, lib_ms
 
 
+def timing_row(kp, inputs, shape, dtype, err, iters):
+    ms, device_ms, host_ms, plain_ms, lib_ms = time_knn(
+        kp, inputs, shape["n_valid"], shape["k"], iters)
+    bound, bound_by = knn_bound_ms(shape["n_valid"], shape["dim"],
+                                   shape["batch"], shape["k"], dtype)
+    return {"shape": shape, "dtype": str(dtype), "max_abs_err": err,
+            "ms": ms, "kernel_device_ms": device_ms, "host_ms": host_ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
+            "bound_by": bound_by}
+
+
 def reset_launches(kp):
     for name in kp.cosine_topk_pallas.launches:
         kp.cosine_topk_pallas.launches[name] = 0
@@ -350,29 +399,376 @@ def check_mission(res):
                              f"{res['threads_left']}")
 
 
+def forward_flops(model, x):
+    """Operations (2 x multiply-adds) of one forward of `model` over x,
+    from the shapes its conv, linear and NetVLAD layers see (forward
+    hooks); elementwise work is not counted."""
+    from cslam_tpu_torch.models.netvlad import NetVLADLayer
+    counts = []
+
+    def hook(m, inp, out):
+        if isinstance(m, torch.nn.Conv2d):
+            k = m.in_channels // m.groups * m.kernel_size[0] * \
+                m.kernel_size[1]
+            counts.append(2 * out.numel() * k)
+        elif isinstance(m, torch.nn.Linear):
+            counts.append(2 * out.numel() * m.in_features)
+        else:  # assignment conv + weighted residual sum, K x C per pixel
+            b, c, h, w = inp[0].shape
+            counts.append(2 * 2 * b * h * w * c * m.num_clusters)
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear,
+                               NetVLADLayer))]
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return float(sum(counts))
+
+
+def model_bound_ms(flops, nbytes):
+    """Least time of a forward at the card's dense bf16 tensor-core peak
+    vs its bytes (input, weights, output once) over HBM bandwidth."""
+    t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def render_pool(n, seed):
+    """n grey 120x160 renders of one world from random places."""
+    from cslam_tpu_torch.models.train_cosplace import make_world, \
+        render_view
+    rng = np.random.default_rng(seed)
+    world = make_world(seed, n=160)
+    return [render_view(world, (rng.uniform(-3.0, 3.0),
+                                rng.uniform(-2.5, 2.5)), rng, 0.35, 0.06)
+            for _ in range(n)]
+
+
+def check_descriptors(card, cpu, dtype, what):
+    """Raise unless card descriptors agree with the CPU's within
+    MODEL_TOL; returns (max abs difference, min cosine)."""
+    atol, min_cos = MODEL_TOL[dtype]
+    err = float(np.abs(card - cpu).max())
+    cos = float(np.min(np.sum(card * cpu, axis=1)))
+    if not np.isfinite(card).all() or not err <= atol or \
+            (min_cos is not None and not cos >= min_cos):
+        raise AssertionError(f"{what}: card vs CPU max abs {err}, "
+                             f"min cosine {cos}")
+    return err, cos
+
+
+def time_forward(fn, iters=20):
+    """Device ms of one call of fn (a forward over a batch already on the
+    card; CUDA events)."""
+    with torch.no_grad():
+        return cuda_ms(fn, iters)
+
+
+def run_descriptor_phase(card):
+    """Phase 8; returns (per-robot published descriptors, the components,
+    the phase's fields)."""
+    from cslam_tpu_torch.comm import messages as msgs
+    from cslam_tpu_torch.comm.bus import InProcessBus, InProcessRouter
+    from cslam_tpu_torch.frontend.global_descriptor_component import \
+        GlobalDescriptorComponent
+    from cslam_tpu_torch.models.cosplace import CosPlace, \
+        GeoLocalizationNet, embed, preprocess, to_device
+    from cslam_tpu_torch.models.netvlad import NetVLAD
+    from cslam_tpu_torch.runtime.tracing import tracer
+
+    d = DESCRIPTOR
+    n_robots, n_kf, bsz = (d["n_robots"], d["keyframes_per_robot"],
+                           d["batch_size"])
+    t = time.perf_counter()
+    pool = render_pool(d["pool"], SEED + 1)
+    render_s = time.perf_counter() - t
+    t = time.perf_counter()
+    router = InProcessRouter()
+    published = {r: [] for r in range(n_robots)}
+    buses, comps = [], []
+    for r in range(n_robots):
+        bus = InProcessBus(router, r)
+        router.subscribe(f"/r{r}/cslam/processed_global_descriptor",
+                         published[r].append)
+        buses.append(bus)
+        comps.append(GlobalDescriptorComponent(
+            {"robot_id": r, "frontend.global_descriptor_technique":
+             "cosplace", "frontend.nn_checkpoint": "shipped"},
+            bus, batch_size=bsz))
+    model = comps[0].model
+    if not (model.enabled and next(model.model.parameters()).is_cuda):
+        raise AssertionError("the config path did not load the shipped "
+                             "CosPlace onto the card")
+    # warm-up: cuDNN's first calls at the batch's and the tail's sizes
+    for n in (bsz, n_kf % bsz or bsz):
+        model.compute_embeddings_batch(np.stack(
+            [np.broadcast_to(im[..., None], im.shape + (3,))
+             for im in pool[:n]]))
+    setup_s = time.perf_counter() - t
+
+    def view(r, kid):
+        return pool[(kid + d["robot_offset"] * r) % len(pool)]
+
+    tracer.clear()
+    tracer.enable(None)  # record spans in memory only
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for start in range(0, n_kf, bsz):
+        for r, bus in enumerate(buses):
+            for kid in range(start, min(start + bsz, n_kf)):
+                bus.publish("cslam/keyframe_data",
+                            msgs.KeyframeRGB.from_image(kid, view(r, kid)))
+        router.spin_until_idle()
+    for gdc in comps:
+        gdc.tick()
+    router.spin_until_idle()
+    torch.cuda.synchronize()
+    e2e_s = time.perf_counter() - t
+    spans = tracer.totals()
+    tracer.disable()
+    tracer.clear()
+
+    for r in range(n_robots):
+        got = published[r]
+        if [m.keyframe_id for m in got] != list(range(n_kf)) or \
+                any(m.robot_id != r for m in got):
+            raise AssertionError(f"robot {r} published {len(got)} "
+                                 f"descriptors, not keyframes 0..{n_kf - 1}")
+    emb = np.stack([np.asarray(m.descriptor) for r in range(n_robots)
+                    for m in published[r]])
+    norms = np.linalg.norm(emb, axis=1)
+    if emb.shape != (n_robots * n_kf, model.fc_output_dim) or \
+            not np.isfinite(emb).all() or \
+            not np.allclose(norms, 1.0, atol=1e-4):
+        raise AssertionError(f"descriptors: shape {emb.shape}, norms "
+                             f"{norms.min()}..{norms.max()}")
+    forwards = spans["descriptor_forward"]["count"]
+    if forwards != n_robots * -(-n_kf // bsz):
+        raise AssertionError(f"{forwards} forwards for {n_robots} x "
+                             f"{n_kf} keyframes in batches of {bsz}")
+
+    # 8 of those keyframes against the same model on the CPU; and the
+    # same network with f32 convs, card against CPU
+    sample = np.stack([np.broadcast_to(view(0, k)[..., None],
+                                       (120, 160, 3)) for k in range(8)])
+    params = {"frontend.nn_checkpoint": "shipped"}
+    cpu_check = {}
+    on_cpu = CosPlace(params, device="cpu").compute_embeddings_batch(sample)
+    err, cos = check_descriptors(emb[:8], on_cpu, torch.bfloat16,
+                                 "CosPlace bf16")
+    cpu_check["torch.bfloat16"] = {"max_abs_err": err, "min_cosine": cos}
+    state = model.model.state_dict()
+    f32 = {}
+    for dev in ("cpu", "cuda"):
+        net = GeoLocalizationNet(model.fc_output_dim, dtype=torch.float32)
+        net.load_state_dict(state)
+        f32[dev] = embed(net.eval().to(dev), preprocess(sample, 224),
+                         torch.device(dev))
+    err, cos = check_descriptors(f32["cuda"], f32["cpu"], torch.float32,
+                                 "CosPlace f32")
+    cpu_check["torch.float32"] = {"max_abs_err": err, "min_cosine": cos}
+
+    # device time per batch of 64 at crop 224, and the NetVLAD forward
+    batch_np = preprocess(np.stack([np.broadcast_to(
+        im[..., None], im.shape + (3,)) for im in pool[:bsz]]), 224)
+    x = to_device(batch_np, torch.device("cuda"))
+    h2d_ms = cuda_ms(lambda: to_device(batch_np, torch.device("cuda")), 20)
+    flops = forward_flops(model.model, x)
+    nbytes = x.numel() * 4 + sum(p.numel() * 4 for p in
+                                 model.model.parameters()) + bsz * 64 * 4
+    bound, bound_by = model_bound_ms(flops, nbytes)
+    ms = time_forward(lambda: model.model(x))
+    nv = NetVLAD(params, device="cuda")
+    nv_batch = preprocess(np.stack([np.broadcast_to(
+        im[..., None], im.shape + (3,)) for im in pool[:bsz]]), nv.crop_size)
+    xn = to_device(nv_batch, torch.device("cuda"))
+    nv_flops = forward_flops(nv.model, xn) + 2.0 * bsz * 128 * 64 * 512
+    nv_bytes = xn.numel() * 4 + 4 * (
+        sum(p.numel() for p in nv.model.parameters())
+        + nv.pca_components.numel() + nv.pca_mean.numel()) + bsz * 128 * 4
+
+    def nv_forward():
+        out = nv.model(xn)
+        return (out - nv.pca_mean) @ nv.pca_components.T
+
+    nv_bound, nv_bound_by = model_bound_ms(nv_flops, nv_bytes)
+    nv_ms = time_forward(nv_forward)
+    fields = dict(
+        robots=n_robots, keyframes_per_robot=n_kf, image="120x160 grey",
+        crop=model.crop_size, descriptor_dim=model.fc_output_dim,
+        batch_size=bsz, pool_views=len(pool), pool_render_s=render_s,
+        setup_s=setup_s, e2e_s=e2e_s,
+        images_per_s=n_robots * n_kf / e2e_s,
+        host_preprocess_s=spans["descriptor_preprocess"]["seconds"],
+        host_preprocess_share=spans["descriptor_preprocess"]["seconds"]
+        / e2e_s,
+        forward_call_s=spans["descriptor_forward"]["seconds"],
+        forward_call_share=spans["descriptor_forward"]["seconds"] / e2e_s,
+        forwards=forwards,
+        host_ms_per_batch={
+            name: spans[f"descriptor_{name}"]["seconds"] / forwards * 1e3
+            for name in ("preprocess", "forward")},
+        cpu_check=cpu_check,
+        cosplace_forward={"batch": bsz, "ms": ms, "h2d_ms": h2d_ms,
+                          "flops": flops,
+                          "bound_ms": bound, "bound_by": bound_by,
+                          "tflops_per_s": flops / ms / 1e9},
+        netvlad_forward={"batch": bsz, "crop": nv.crop_size, "ms": nv_ms,
+                         "flops": nv_flops, "bound_ms": nv_bound,
+                         "bound_by": nv_bound_by,
+                         "tflops_per_s": nv_flops / nv_ms / 1e9},
+        max_memory_allocated=torch.cuda.max_memory_allocated(), card=card)
+    return published, comps, fields
+
+
+def detector_params(robot_id, n_robots):
+    return {"robot_id": robot_id, "max_nb_robots": n_robots,
+            "frontend.global_descriptor_technique": "cosplace",
+            "frontend.nn_checkpoint": "shipped",
+            "frontend.similarity_threshold": 0.8,
+            "frontend.nb_best_matches": 5,
+            "frontend.intra_loop_min_inbetween_keyframes": 2,
+            "frontend.enable_intra_robot_loop_closures": True,
+            "frontend.inter_robot_loop_closure_budget": 5,
+            "neighbor_management.enable_neighbor_monitoring": False,
+            "neighbor_management.init_delay_sec": 0.0,
+            "neighbor_management.max_heartbeat_delay_sec": 5.0}
+
+
+def run_place_recognition(kp, published, cosplace):
+    """Phase 9; returns its fields, raising on any gate."""
+    from cslam_tpu_torch.comm import messages as msgs
+    from cslam_tpu_torch.comm.bus import InProcessBus, InProcessRouter, \
+        ManualClock
+    from cslam_tpu_torch.frontend.loop_closure_detection import \
+        GlobalDescriptorLoopClosureDetection
+    from cslam_tpu_torch.models.cosplace import CosPlace
+    from cslam_tpu_torch.models.netvlad import NetVLAD
+    from cslam_tpu_torch.models.train_cosplace import eval_recall, \
+        make_world, render_places, top1_recall
+
+    t = time.perf_counter()
+    trained = eval_recall(cosplace.model, seed=31337, n_places=24,
+                          device="cuda")
+    rand = CosPlace({"frontend.nn_checkpoint": "disable"}, rng_seed=3,
+                    device="cuda")
+    baseline = eval_recall(rand.model, seed=31337, n_places=24,
+                           device="cuda")
+    nv = NetVLAD({"frontend.nn_checkpoint": "shipped"}, device="cuda")
+    nv_recalls = []
+    for w in range(3):
+        rng = np.random.default_rng(31337 + w)
+        imgs, labels = render_places(rng, make_world(31337 + 17 * w, n=160),
+                                     16, 2, 0.35, 0.06)
+        nv_recalls.append(top1_recall(nv.compute_embeddings_batch(imgs),
+                                      labels, "cuda"))
+    nv_recall = float(np.mean(nv_recalls))
+    recall_launches = dict(kp.cosine_topk_pallas.launches)
+    recall_s = time.perf_counter() - t
+
+    # the detector builds CosPlace itself; robot 0's published
+    # descriptors arrive on its bus, robot 1's as one gossip message
+    t = time.perf_counter()
+    n_robots = len(published)
+    router = InProcessRouter()
+    bus = InProcessBus(router, 0)
+    det = GlobalDescriptorLoopClosureDetection(
+        detector_params(0, n_robots), bus, ManualClock(), device="cuda")
+    model = det.global_descriptor
+    if not (isinstance(model, CosPlace) and model.enabled and
+            next(model.model.parameters()).is_cuda):
+        raise AssertionError("the detector did not build the shipped "
+                             "CosPlace on the card")
+    intra = []
+    router.subscribe("/r0/cslam/local_keyframe_match", intra.append)
+    for m in published[0]:
+        bus.publish("cslam/processed_global_descriptor", m)
+        router.spin_until_idle()
+    det.global_descriptor_callback(msgs.GlobalDescriptors(
+        descriptors=published[1]))
+    torch.cuda.synchronize()
+    detector_s = time.perf_counter() - t
+    launches = dict(kp.cosine_topk_pallas.launches)
+    pool, offset = DESCRIPTOR["pool"], DESCRIPTOR["robot_offset"]
+    repeats = {m.keyframe0_id: m.keyframe1_id for m in intra}
+    n_kf = len(published[0])
+    same_view = sum(1 for k in range(pool, n_kf)
+                    if k in repeats and (k - repeats[k]) % pool == 0)
+    inter = list(det.inter_robot_matches_buffer.values())
+    inter_same = sum(1 for e in inter
+                     if (e.robot0_keyframe_id - e.robot1_keyframe_id
+                         - offset) % pool == 0)
+    fields = dict(
+        cosplace_recall_at_1=trained, cosplace_random_init=baseline,
+        netvlad_pca_recall_at_1=nv_recall,
+        netvlad_per_world=nv_recalls, recall_s=recall_s,
+        recall_launches=recall_launches, detector_s=detector_s,
+        intra_matches=len(intra), repeats_found=same_view,
+        repeats=n_kf - pool, inter_matches=len(inter),
+        inter_same_view=inter_same, gossiped=len(published[1]),
+        knn_launches=launches)
+    return fields
+
+
+def check_place_recognition(res):
+    """The place_recognition phase's gates (the reference's recall bars,
+    tests/test_trained_cosplace.py and test_trained_netvlad.py); raises
+    on the first that fails."""
+    trained, baseline = res["cosplace_recall_at_1"], \
+        res["cosplace_random_init"]
+    if not (trained >= 0.85 and trained >= baseline + 0.2):
+        raise AssertionError(f"CosPlace recall@1 {trained} (random init "
+                             f"{baseline})")
+    if not res["netvlad_pca_recall_at_1"] >= 0.9:
+        raise AssertionError(f"NetVLAD recall@1 "
+                             f"{res['netvlad_pca_recall_at_1']}")
+    if res["recall_launches"]["cosine_topk_f32"] <= 0:
+        raise AssertionError("recall@1 never launched the kernel")
+    if res["repeats_found"] < 0.99 * res["repeats"]:
+        raise AssertionError(f"the detector found {res['repeats_found']} "
+                             f"of {res['repeats']} repeated views")
+    if res["inter_same_view"] < 0.99 * res["gossiped"]:
+        raise AssertionError(f"{res['inter_same_view']} of "
+                             f"{res['gossiped']} gossiped descriptors "
+                             f"matched their view")
+    if res["knn_launches"]["cosine_topk_f32"] <= \
+            res["recall_launches"]["cosine_topk_f32"]:
+        raise AssertionError("the detector never launched the kernel")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     from cslam_tpu_torch import _build
+    from cslam_tpu_torch.device import resolve_device
     from cslam_tpu_torch.ops import knn_pallas as kp
     from cslam_tpu_torch.swarm_slice import candidate_table, ingest, \
         make_params, run_slice
     from cslam_tpu_torch.matching.sparse_matching import \
         LoopClosureSparseMatching
 
-    # 1. device
+    # 1. device; the port's own device resolution must turn TF32 off
+    # for fp32 matrix products and for cuDNN convolutions (PyTorch's
+    # default for the latter is on)
     t0 = time.perf_counter()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    if torch.backends.cuda.matmul.allow_tf32:
-        raise AssertionError("TF32 matmuls must be off")
+    resolve_device("cuda")
+    tf32 = {"matmul": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn": torch.backends.cudnn.allow_tf32}
+    if any(tf32.values()):
+        raise AssertionError(f"TF32 must be off after resolve_device: "
+                             f"{tf32}")
     card = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     phase("device", t0, card=card, kind=kind, count=count,
           torch=torch.__version__, cuda=torch.version.cuda,
-          allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+          allow_tf32=tf32)
 
     # 2. build, and the tensor-core instructions of each kernel
     t0 = time.perf_counter()
@@ -407,6 +803,12 @@ def main():
         for dim in (33, 96, 512):
             cases.append((4096, 3001 + 7 * batch, dim, batch, 10,
                           torch.bfloat16))
+    for dim in (64, 128):                  # CosPlace and NetVLAD + PCA
+        for dtype in (torch.float32, torch.bfloat16):
+            for n_valid in (48, 1000):
+                for batch in (1, 64):
+                    for k in (1, 10):
+                        cases.append((1024, n_valid, dim, batch, k, dtype))
     worst = 0.0
     for c in cases:
         _, err = check_knn_case(kp, *c, gen)
@@ -425,16 +827,14 @@ def main():
                                      shape["k"], dtype, gen)
         worst = max(worst, err)
         iters = 200 if label.startswith("main") else 50
-        ms, device_ms, host_ms, plain_ms, lib_ms = time_knn(
-            kp, inputs, shape["n_valid"], shape["k"], iters)
-        bound, bound_by = knn_bound_ms(shape["n_valid"], shape["dim"],
-                                       shape["batch"], shape["k"], dtype)
-        timing[label] = {"shape": shape, "dtype": str(dtype),
-                         "max_abs_err": err, "ms": ms,
-                         "kernel_device_ms": device_ms, "host_ms": host_ms,
-                         "plain_ms": plain_ms, "library_ms": lib_ms,
-                         "bound_ms": bound, "bound_by": bound_by}
+        timing[label] = timing_row(kp, inputs, shape, dtype, err, iters)
         del inputs
+    for label, (shape, dtype) in DESC_SHAPES.items():
+        inputs, err = check_knn_case(kp, shape["n_cap"], shape["n_valid"],
+                                     shape["dim"], shape["batch"],
+                                     shape["k"], dtype, gen)
+        worst = max(worst, err)
+        timing[label] = timing_row(kp, inputs, shape, dtype, err, 200)
     # the user-level wrapper routes a CUDA tensor to the kernel, one
     # launch per search of k <= KMAX
     before = sum(kp.cosine_topk_pallas.launches.values())
@@ -443,7 +843,8 @@ def main():
     if sum(kp.cosine_topk_pallas.launches.values()) != before + 1:
         raise AssertionError("cosine_topk_pallas did not launch the kernel")
     torch.cuda.empty_cache()
-    phase("kernel", t0, cases=len(cases) + 8, max_abs_err=worst,
+    phase("kernel", t0, cases=len(cases) + 8 + len(DESC_SHAPES),
+          max_abs_err=worst,
           timing=timing, card=card)
 
     # 4. the slice at map scale (f32 storage: the f32 kernel)
@@ -535,6 +936,23 @@ def main():
                             fixed_edges=len(mission["fixed_edges"])))
     check_mission(mission)
 
+    # 8. keyframe images -> descriptors on the card, config path
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    published, comps, fields = run_descriptor_phase(card)
+    phase("descriptor", t0, **fields)
+
+    # 9. place recognition: recall gates and the detector, top-1 from
+    # the kernel
+    t0 = time.perf_counter()
+    reset_launches(kp)
+    recog = run_place_recognition(kp, published, comps[0].model)
+    launches_pr = recog["knn_launches"]
+    phase("place_recognition", t0, **recog)
+    check_place_recognition(recog)
+    del comps, published
+
     def entry(name, main, n_launches):
         return {"name": name, "route": "cuda", "source": KNN_SOURCE,
                 "replaces": KNN_REPLACES, "launches": n_launches,
@@ -546,11 +964,12 @@ def main():
     f32 = entry("cosine_topk_f32", timing["main_f32"],
                 launches["cosine_topk_f32"])
     f32["mission_launches"] = mission["knn_launches"]["cosine_topk_f32"]
+    bf16 = entry("cosine_topk_bf16_mma", timing["main_bf16"],
+                 launches_bf16["cosine_topk_bf16_mma"])
+    for e in (f32, bf16):
+        e["place_recognition_launches"] = launches_pr[e["name"]]
 
-    emit({"kernels": [
-        f32,
-        entry("cosine_topk_bf16_mma", timing["main_bf16"],
-              launches_bf16["cosine_topk_bf16_mma"])]})
+    emit({"kernels": [f32, bf16]})
     emit({"total_elapsed_s": round(time.perf_counter() - T_START, 3)})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -411,7 +411,7 @@ def gnc_optimize_core(g: GraphArrays, cfg: PGOConfig, red=None,
 
     stop_after in {"init", "gnc", "polish"} truncates the pipeline;
     count_iters also returns a dict of per-phase LM-step and CG totals."""
-    require_full_fp32()
+    require_full_fp32(g.R.device)
     if cfg.use_chordal_init:
         if red is not None:
             raise ValueError("chordal init runs on the full edge set; "

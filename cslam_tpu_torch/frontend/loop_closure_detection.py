@@ -3,8 +3,9 @@
 Port of cslam_tpu/frontend/loop_closure_detection.py. Every ingested or
 gossiped descriptor goes through the port's `DescriptorDatabase`, whose
 "auto" search runs the hand-written CUDA cosine top-k kernel on a card
-(its plain version on the CPU); `device=` chooses where the matcher
-and its MAC selection run (None = the CUDA card).
+(its plain version on the CPU); `device=` chooses where the matcher,
+its MAC selection and the CosPlace model it builds when no
+descriptor_model is passed run (None = the CUDA card).
 
 Capability parity with the reference GlobalDescriptorLoopClosureDetection
 (Swarm-SLAM cslam/global_descriptor_loop_closure_detection.py): per
@@ -64,7 +65,8 @@ class GlobalDescriptorLoopClosureDetection:
         elif technique == "scancontext":
             _not_ported("the Scan Context model (frontend/lidar_handler.py)")
         else:
-            _not_ported("the CosPlace model (models/cosplace.py)")
+            from cslam_tpu_torch.models.cosplace import CosPlace
+            self.global_descriptor = CosPlace(params, device=device)
 
         # pub/sub wiring (absolute topics are swarm-wide)
         self.global_descriptor_publisher = bus.create_publisher(

@@ -9,8 +9,9 @@ requests on the bus and verifies candidate loop closures from ground
 truth (its per-robot noise stream is `default_rng(robot_id + 7)`, as in
 the reference, so noisy measurements match). The world is host-side
 numpy; its SE(3) exponentials run on the CPU through the port's se3
-ops. The rendered visual scenes of the reference module belong to the
-visual front-end, which is not ported yet.
+ops. `render_corner_scene` renders the corner-rich grey views that the
+place-recognition models embed; it makes the reference's RNG draws in
+the reference's order, so one seed and pose give the same bytes.
 """
 
 from typing import Dict, List, Optional, Tuple
@@ -208,3 +209,57 @@ class SimSensorHandler:
         registration estimate covariance, rgbd_handler.cpp:623/:703)."""
         var = max(self.measurement_noise, 1e-3) ** 2
         return np.full(6, var, dtype=np.float32)
+
+
+# ----------------------------------------------------------------------
+# Visual sim: corner-rich rendered scenes for the learned front-end
+# ----------------------------------------------------------------------
+
+
+def _box_blur3(img):
+    out = img.copy()
+    out[1:-1, 1:-1] = (
+        img[:-2, :-2] + img[:-2, 1:-1] + img[:-2, 2:] +
+        img[1:-1, :-2] + img[1:-1, 1:-1] + img[1:-1, 2:] +
+        img[2:, :-2] + img[2:, 1:-1] + img[2:, 2:]) / 9.0
+    return out
+
+
+def render_corner_scene(pose, intrinsics, rng, squares_w=None, shades=None,
+                        n=36, seed=0, H=120, W=160, square_half_px=8):
+    """Render corner-rich squares on the z=5 world plane into the camera
+    at `pose` ((R, t) world pose; world->camera = pose^-1), returning
+    (uint8 image, float32 depth).
+
+    Mid-gray gradient background, high-contrast axis-aligned squares,
+    box blur and sensor noise (the distribution the shipped models were
+    trained on). Pass `squares_w`/`shades` ((N, 3) world points at z=5
+    and their intensities) to render views of one persistent world;
+    otherwise `n` squares are placed from `seed`.
+    """
+    if squares_w is None:
+        blob_rng = np.random.default_rng(seed)
+        squares_w = np.stack([blob_rng.uniform(-5.5, 5.5, n),
+                              blob_rng.uniform(-4, 4, n),
+                              np.full(n, 5.0)], axis=1).astype(np.float32)
+        shades = np.where(blob_rng.random(n) < 0.5,
+                          blob_rng.uniform(0.0, 0.18, n),
+                          blob_rng.uniform(0.82, 1.0, n))
+    R, t = pose
+    pts_c = (squares_w - t) @ R
+    xx, _ = np.meshgrid(np.arange(W), np.arange(H))
+    img = (0.5 + 0.1 * (xx / W - 0.5)).astype(np.float32)
+    depth = np.full((H, W), 5.0, np.float32)
+    order = np.argsort(-pts_c[:, 2])  # paint far to near
+    for p, sh in zip(pts_c[order], np.asarray(shades)[order]):
+        if p[2] < 0.5:
+            continue
+        u = int(intrinsics.fx * p[0] / p[2] + intrinsics.cx)
+        v = int(intrinsics.fy * p[1] / p[2] + intrinsics.cy)
+        h = square_half_px
+        if h <= u < W - h and h <= v < H - h:
+            img[v - h:v + h, u - h:u + h] = sh
+            depth[v - h - 1:v + h + 1, u - h - 1:u + h + 1] = p[2]
+    img = _box_blur3(img)
+    img += rng.standard_normal((H, W)).astype(np.float32) * 0.02
+    return (np.clip(img, 0, 1) * 255).astype(np.uint8), depth

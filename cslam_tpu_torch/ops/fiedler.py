@@ -53,7 +53,7 @@ def fiedler_pair_inverse(e_i, e_j, weights, node_mask, v0=None,
     (lambda_2, v) — scalar and (P,), or (Bt,) and (Bt, P) when batched —
     plus (invit_taken, cg_taken_total) when return_iters.
     """
-    require_full_fp32()
+    require_full_fp32(weights.device)
     batched = weights.dim() == 2
     w = weights.float() if batched else weights.float()[None]
     Bt = w.shape[0]
@@ -164,7 +164,7 @@ def fiedler_pair_lobpcg(e_i, e_j, weights, node_mask, num_iters=100,
     the constant vector deflated analytically."""
     from cslam_tpu_torch.ops.lobpcg import lobpcg_standard
 
-    require_full_fp32()
+    require_full_fp32(weights.device)
     dev = weights.device
     P = node_mask.shape[0]
     mask = node_mask.float()

@@ -48,8 +48,9 @@ class Tracer:
         self._t0 = time.perf_counter()
 
     # -- control ------------------------------------------------------
-    def enable(self, path: str, pid_label: str = None):
-        """Start recording; `path` is written on dump()/process exit.
+    def enable(self, path, pid_label: str = None):
+        """Start recording; `path` is written on dump()/process exit
+        (None records in memory only, for `totals`).
 
         pid_label names this process's row in the viewer (e.g. "r3").
         """
@@ -112,6 +113,18 @@ class Tracer:
                 "ts": (time.perf_counter() - self._t0) * 1e6,
                 "args": values,
             })
+
+    def totals(self) -> dict:
+        """{span name: {"count": n, "seconds": host seconds}} over the
+        recorded spans (dropped ones are not counted)."""
+        with self._lock:
+            events = [e for e in self._events if e["ph"] == "X"]
+        out = {}
+        for e in events:
+            t = out.setdefault(e["name"], {"count": 0, "seconds": 0.0})
+            t["count"] += 1
+            t["seconds"] += e["dur"] / 1e6
+        return out
 
     # -- output -------------------------------------------------------
     def dump(self, path: str = None) -> str:

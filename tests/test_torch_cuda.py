@@ -1,7 +1,10 @@
-"""The port on an NVIDIA card: the CUDA kernel against its plain version,
-the kernel behind DescriptorDatabase(method="pallas"), the slice on the
-card against the same slice on the CPU, and the sim mission through
-SwarmNode on the card against the same mission on the CPU.
+"""The port on an NVIDIA card: the CUDA kernel against its plain version
+(at the slice's 512-d and the descriptor models' 64-d and 128-d), the
+kernel behind DescriptorDatabase(method="pallas"), the slice on the
+card against the same slice on the CPU, the sim mission through
+SwarmNode on the card against the same mission on the CPU, and the
+place-recognition models (shipped weights) on the card against the
+same models on the CPU.
 
 Every test here needs a card: marked `cuda`, skipped (in a fixture, not
 at import) where there is none. On the card, without JAX installed:
@@ -10,7 +13,10 @@ at import) where there is none. On the card, without JAX installed:
 
 Tolerances: similarities 1e-5 in f32 and 1e-4 in bf16 (same inputs, only
 the summation order differs); every returned index must carry the plain
-similarity of its slot (ties may pick either row).
+similarity of its slot (ties may pick either row). Model descriptors:
+those of tests/test_torch_models.py (f32 max abs 1e-5; bf16 max abs
+2e-3 and cosine >= 0.9999: cuDNN and the CPU round bf16 convs at other
+places).
 """
 
 import numpy as np
@@ -258,3 +264,128 @@ def test_mission_on_card(cuda):
     on_cpu = run_mission(2, 24, device="cpu")
     assert on_card["fixed_edges"] == on_cpu["fixed_edges"]
     assert opt == pytest.approx(on_cpu["ate"][1][1], abs=1e-3)
+
+
+# ----------------------------------------------------------------------
+# The descriptor models' shapes: D = 64 (CosPlace) and D = 128 (NetVLAD
+# after PCA), one query (the detector) or a batch (the recall check)
+# ----------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dim", [64, 128])
+@pytest.mark.parametrize("batch,k", [(1, 1), (1, 10), (64, 1), (64, 10)])
+@pytest.mark.parametrize("n_valid", [48, 1000])
+def test_kernel_at_descriptor_dims_matches_plain(cuda, dtype, dim, batch, k,
+                                                 n_valid):
+    data, queries, idx, val = _search(cuda, 1024, n_valid, dim, batch, k,
+                                      dtype, dim * 7 + batch + k + n_valid)
+    _check_search(idx, val, data, n_valid, queries, k, dtype)
+
+
+def test_resolve_device_turns_tf32_off(cuda):
+    """Both TF32 switches, matrix products and cuDNN convolutions, are
+    off after resolve_device, and the check passes."""
+    from cslam_tpu_torch.device import require_full_fp32, resolve_device
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    with pytest.raises(RuntimeError, match="allow_tf32"):
+        require_full_fp32(cuda)
+    resolve_device("cuda")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+    require_full_fp32(cuda)
+
+
+MODEL_TOL = {"f32": (1e-5, None), "bf16": (2e-3, 0.9999)}
+
+
+def _views(n=8):
+    from cslam_tpu_torch.models.train_cosplace import make_world, \
+        render_places
+    imgs, _ = render_places(np.random.default_rng(5), make_world(77), n // 2,
+                            2, 0.35, 0.06)
+    return imgs
+
+
+def _assert_close(card, cpu, dtype):
+    atol, min_cos = MODEL_TOL[dtype]
+    assert np.isfinite(card).all()
+    np.testing.assert_allclose(card, cpu, rtol=0, atol=atol)
+    if min_cos is not None:
+        assert np.min(np.sum(card * cpu, axis=1)) >= min_cos
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("which", ["cosplace", "netvlad"])
+def test_model_on_card_matches_cpu(cuda, which, dtype):
+    """The shipped CosPlace (crop 224) and NetVLAD with PCA (crop 128) on
+    the card against the same wrapper on the CPU, same 8 renders."""
+    from cslam_tpu_torch.models.cosplace import CosPlace, \
+        GeoLocalizationNet
+    from cslam_tpu_torch.models.netvlad import NetVLAD, NetVLADNet
+
+    def wrapper(device):
+        w = (CosPlace if which == "cosplace" else NetVLAD)(
+            {"frontend.nn_checkpoint": "shipped"}, device=device)
+        if dtype == "f32":  # same weights, convs in f32
+            net = GeoLocalizationNet(dtype=torch.float32) \
+                if which == "cosplace" else NetVLADNet(dtype=torch.float32)
+            net.load_state_dict(w.model.state_dict())
+            w.model = net.eval().to(w.device)
+        return w
+
+    views = _views()
+    card = wrapper(cuda)
+    assert next(card.model.parameters()).is_cuda
+    on_card = card.compute_embeddings_batch(views)
+    on_cpu = wrapper("cpu").compute_embeddings_batch(views)
+    assert on_card.shape == (8, 64 if which == "cosplace" else 128)
+    _assert_close(on_card, on_cpu, dtype)
+
+
+def test_descriptor_path_on_card(cuda):
+    """Keyframes -> GlobalDescriptorComponent (config path, shipped
+    CosPlace on the card) -> published descriptors -> a detector built
+    from params (no descriptor_model) on the card: the revisit of each
+    view is found through the kernel."""
+    from cslam_tpu_torch.comm import messages as msgs
+    from cslam_tpu_torch.comm.bus import InProcessBus, InProcessRouter, \
+        ManualClock
+    from cslam_tpu_torch.frontend.global_descriptor_component import \
+        GlobalDescriptorComponent
+    from cslam_tpu_torch.frontend.loop_closure_detection import \
+        GlobalDescriptorLoopClosureDetection
+    from cslam_tpu_torch.models.cosplace import CosPlace
+    params = {"robot_id": 0, "max_nb_robots": 2,
+              "frontend.global_descriptor_technique": "cosplace",
+              "frontend.nn_checkpoint": "shipped",
+              "frontend.similarity_threshold": 0.8,
+              "frontend.nb_best_matches": 5,
+              "frontend.intra_loop_min_inbetween_keyframes": 2,
+              "frontend.enable_intra_robot_loop_closures": True,
+              "frontend.inter_robot_loop_closure_budget": 5,
+              "neighbor_management.enable_neighbor_monitoring": False,
+              "neighbor_management.init_delay_sec": 0.0,
+              "neighbor_management.max_heartbeat_delay_sec": 5.0}
+    router = InProcessRouter()
+    bus = InProcessBus(router, 0)
+    gdc = GlobalDescriptorComponent(params, bus, batch_size=4, device=cuda)
+    det = GlobalDescriptorLoopClosureDetection(params, bus, ManualClock(),
+                                               device=cuda)
+    assert isinstance(det.global_descriptor, CosPlace)
+    assert next(det.global_descriptor.model.parameters()).is_cuda
+    matches = []
+    router.subscribe("/r0/cslam/local_keyframe_match", matches.append)
+    views = _views()
+    before = kp.cosine_topk_pallas.launches["cosine_topk_f32"]
+    # every view twice, 4 keyframes apart
+    for kid, im in enumerate(list(views[::2]) * 2):
+        bus.publish("cslam/keyframe_data",
+                    msgs.KeyframeRGB.from_image(kid, im[..., 0]))
+    router.spin_until_idle()
+    gdc.tick()
+    router.spin_until_idle()
+    assert len(det.lcm.local_nnsm) == 8
+    assert kp.cosine_topk_pallas.launches["cosine_topk_f32"] == before + 8
+    assert [(m.keyframe0_id, m.keyframe1_id) for m in matches] == \
+        [(4, 0), (5, 1), (6, 2), (7, 3)]

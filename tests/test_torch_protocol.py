@@ -510,7 +510,7 @@ def _gossip_params(robot_id, quant):
 
 
 class _NoModel:
-    """The test adds descriptors directly; the port has no CosPlace yet."""
+    """The test adds descriptors directly: no model is needed."""
 
 
 def _detectors(P, quant):
@@ -565,11 +565,20 @@ def test_detection_parity_through_serialized_gossip(quant):
 
 
 def test_detection_without_a_model_is_not_ported():
+    """Without a descriptor_model, the lidar technique (Scan Context, not
+    ported yet) raises; CosPlace is ported, and the detector builds it
+    from params on its own device (here disabled: random descriptors)."""
+    from cslam_tpu_torch.models.cosplace import CosPlace
     router = tbus.InProcessRouter()
-    for technique in ("cosplace", "scancontext"):
-        params = dict(_gossip_params(0, "none"),
-                      **{"frontend.global_descriptor_technique": technique})
-        with pytest.raises(NotImplementedError, match="descriptor_model"):
-            tlcd.GlobalDescriptorLoopClosureDetection(
-                params, tbus.InProcessBus(router, 0), tbus.ManualClock(),
-                device="cpu")
+    params = dict(_gossip_params(0, "none"),
+                  **{"frontend.global_descriptor_technique": "scancontext"})
+    with pytest.raises(NotImplementedError, match="descriptor_model"):
+        tlcd.GlobalDescriptorLoopClosureDetection(
+            params, tbus.InProcessBus(router, 0), tbus.ManualClock(),
+            device="cpu")
+    det = tlcd.GlobalDescriptorLoopClosureDetection(
+        _gossip_params(0, "none"), tbus.InProcessBus(router, 0),
+        tbus.ManualClock(), device="cpu")
+    assert isinstance(det.global_descriptor, CosPlace)
+    assert not det.global_descriptor.enabled
+    assert det.global_descriptor.device == torch.device("cpu")
