@@ -16,7 +16,7 @@ Phases, each printing one JSON line with its own elapsed_s:
      CUDA-event timings of the search, the plain version and a library
      call, and the search's host wall time per call;
   4. slice: the device path at map scale — 4 robots x 1000 keyframes,
-     512-d descriptors: kNN ingestion through the f32 kernel, 8 rounds
+     512-d descriptors: kNN ingestion through the f32 kernel, 4 rounds
      of MAC selection (matrix-free Fiedler path, P = 4096), GNC-LM PGO;
      the kernel's launches are counted over this phase alone;
   5. path check: the same descriptors through the exact (non-kernel)
@@ -51,12 +51,31 @@ Phases, each printing one JSON line with its own elapsed_s:
      descriptor_model, so it builds CosPlace on the card) fed the
      descriptors robot 0 published and robot 1's as gossip, which must
      find every repeated view; the kernel's launches of this phase;
+ 10. visual: the learned visual mission (cslam_tpu_torch.visual_mission:
+     RGBDHandler with the shipped SuperPoint and 3-layer LightGlue,
+     GlobalDescriptorComponent with the shipped CosPlace, SwarmNode
+     with the detector's searches on the kernel, the broker and
+     decentralized GNC-LM PGO) at 4 robots x 100 rendered 120x160
+     keyframes, 128 keypoints, under the mission's watchdog: per-stage
+     seconds (render, SuperPoint extraction, descriptor, detection,
+     verification, optimization), verifications and ms per verified pair
+     (LightGlue, RANSAC/PnP), loop closures, ATE per robot, the kernel's
+     launches over this phase alone; then 8 keyframes' SuperPoint and 8
+     pairs' LightGlue, 3D-3D RANSAC and PnP RANSAC on the card against
+     the same on the CPU, and the reference's shipped-weight gates
+     (LightGlue F1 over raw matching, the offset revisit, inter-robot
+     verification) on the card;
+ 11. visual_models: CUDA-event times of one SuperPoint forward at
+     120x160 and 480x640, LightGlue at 3 layers / K = 128 (shipped) and
+     9 layers / K = 1024 (Flax-default random init), each against its
+     operations / bytes bound;
 then the kernels line, the card line, and the result line.
 
 Exits non-zero, printing no result, without a CUDA card, without the
 package, or when any phase fails. Uses no JAX.
 """
 
+import contextlib
 import faulthandler
 import json
 import subprocess
@@ -74,6 +93,9 @@ HEADLINE = dict(n_cap=131072, n_valid=100000, dim=512, batch=256, k=10)
 # the slice's own search shape: one robot's database after ingestion
 # (1000 keyframes in a 1024-row buffer), one query, best match only
 MAIN_SHAPE = dict(n_cap=1024, n_valid=1000, dim=512, batch=1, k=1)
+# MAC selection rounds of the slice phase: 8 before the visual phases
+# came, cut to 4 to keep the script in its time limit (PERF.md §4)
+SLICE_ROUNDS = 4
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -107,6 +129,27 @@ DESC_SHAPES = {
     "recall_d128_f32": (dict(n_cap=1024, n_valid=32, dim=128, batch=32,
                              k=2), torch.float32),
 }
+
+
+# the visual phase: 4 robots as every other phase, 100 keyframes each,
+# the reference visual mission's settings otherwise
+VISUAL = dict(n_robots=4, n_poses=100)
+VISUAL_WATCHDOG_S = 480
+VISUAL_CHECK_PAIRS = 8
+# card against CPU in the visual phase: SuperPoint descriptors (f32;
+# bf16 max abs and cosine), heatmaps (f32; bf16: a softmax of logits
+# whose bf16 inputs round at other places, tests/test_torch_
+# visual_models.py), LightGlue scores on valid entries (max abs), RANSAC
+# poses. Each reduced-precision control (SuperPoint's f32 heads computed
+# in bf16, LightGlue's products in TF32) must exceed its bound.
+SP_TOL = {torch.float32: (1e-5, 1e-5, None),
+          torch.bfloat16: (2e-3, 3e-3, 0.9999)}
+SCORE_TOL = 1e-4
+# the CPU parity test's bound against the reference on real features,
+# 1e-4 + 2e-6 |score| (tests/test_torch_visual_models.py), read beside
+# the TF32 control
+SCORE_REL_TOL = 2e-6
+POSE_TOL = 1e-4
 
 
 def emit(obj):
@@ -741,6 +784,532 @@ def check_place_recognition(res):
         raise AssertionError("the detector never launched the kernel")
 
 
+def visual_frames(n_pairs, seed):
+    """n_pairs (image, depth, pose) pairs of nearby views of the visual
+    mission's world (a revisit within 0.2 m and 3 degrees)."""
+    from cslam_tpu_torch.visual_mission import SquareWorld, make_pose
+    world = SquareWorld()
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_pairs):
+        x, y, w = rng.uniform(-2, 2), rng.uniform(-0.3, 0.3), \
+            rng.uniform(-0.1, 0.1)
+        p0 = make_pose(x, y, w)
+        p1 = make_pose(x + rng.uniform(-0.2, 0.2), y + rng.uniform(-0.1, 0.1),
+                       w + rng.uniform(-0.05, 0.05))
+        out.append(((*world.render(p0, rng), p0), (*world.render(p1, rng),
+                                                   p1)))
+    return out
+
+
+@contextlib.contextmanager
+def lightglue_in_tf32():
+    """LightGlue's fp32 products in TF32, for the control run only: the
+    port refuses TF32 (device.require_full_fp32), so that check is lifted
+    for the duration and both are restored after."""
+    from cslam_tpu_torch.models import lightglue
+    saved = lightglue.require_full_fp32
+    lightglue.require_full_fp32 = lambda device=None: None
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        lightglue.require_full_fp32 = saved
+
+
+def check_visual_on_card(device):
+    """SuperPoint (f32, bf16) on 8 keyframes, then LightGlue (f32), 3D-3D
+    RANSAC and PnP RANSAC on 8 pairs, on `device` against the CPU on the
+    same inputs; raises on any gate, returns the largest differences.
+
+    Each bound is also read against a control at the next lower
+    precision, which must exceed it: SuperPoint's two f32 1x1 heads
+    computed in bf16, LightGlue's products in TF32. RANSAC's hypothesis
+    samples are drawn on the host from the same mask for both devices
+    (ops/matching2d.draw_samples), so they are identical by
+    construction; the inlier sets and poses are what the card
+    computes."""
+    ref = "cpu"
+    from cslam_tpu_torch.frontend.rgbd_handler import RGBDHandler
+    from cslam_tpu_torch.models import zoo
+    from cslam_tpu_torch.models.lightglue import LightGlue, mutual_matches
+    from cslam_tpu_torch.models.superpoint import SuperPoint, \
+        SuperPointNet, _cell_scores_to_heatmap, extract
+    from cslam_tpu_torch.ops import matching2d, pnp
+    from cslam_tpu_torch.visual_mission import INTR
+
+    pairs = visual_frames(VISUAL_CHECK_PAIRS, seed=SEED + 9)
+    sp_npz = zoo.shipped_checkpoint("superpoint_synth.npz")
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        desc_tol, heat_tol, min_cos = SP_TOL[dtype]
+        nets = {d: SuperPoint(sp_npz, 128, device=d) for d in (device, ref)}
+        if dtype == torch.float32:  # same weights, convs in f32
+            for d, sp in nets.items():
+                net = SuperPointNet(dtype=torch.float32)
+                net.load_state_dict(sp.model.state_dict())
+                sp.model = net.eval().to(d)
+        worst = {"heat": 0.0, "desc": 0.0, "min_cos": 1.0, "overlap": 1.0}
+        if dtype == torch.bfloat16:
+            worst["heat_heads_in_bf16_control"] = 0.0
+        for (img, _, _), _ in pairs:
+            got = {}
+            for d, sp in nets.items():
+                x = sp.image_tensor(img)
+                with torch.no_grad():
+                    det, desc = sp.model(x[None, :, :, None])
+                got[d] = ([_cell_scores_to_heatmap(det)[0].cpu().numpy(),
+                           desc[0].cpu().numpy()] +
+                          [a.cpu().numpy() for a in extract(sp.model, x, 128)])
+            (h_c, d_c, xy_c, _, _, m_c), (h_r, d_r, xy_r, _, _, m_r) = \
+                got[device], got[ref]
+            worst["heat"] = max(worst["heat"], float(np.abs(h_c - h_r).max()))
+            worst["desc"] = max(worst["desc"], float(np.abs(d_c - d_r).max()))
+            worst["min_cos"] = min(worst["min_cos"], float(
+                np.min(np.sum(d_c * d_r, axis=-1))))
+            ref_set = {tuple(p) for p in xy_r[m_r > 0]}
+            worst["overlap"] = min(worst["overlap"], sum(
+                tuple(p) in ref_set for p in xy_c[m_c > 0]) / max(
+                len(ref_set), int(m_c.sum()), 1))
+            if dtype == torch.float32 and not (
+                    np.array_equal(xy_c, xy_r) and np.array_equal(m_c, m_r)):
+                raise AssertionError("SuperPoint f32: other keypoints on "
+                                     "the card")
+            if dtype == torch.bfloat16:
+                net = nets[device].model
+                net.convPb.compute_dtype = net.convDb.compute_dtype = dtype
+                try:
+                    with torch.no_grad():
+                        det, _ = net(nets[device].image_tensor(img)[
+                            None, :, :, None])
+                finally:
+                    net.convPb.compute_dtype = torch.float32
+                    net.convDb.compute_dtype = torch.float32
+                worst["heat_heads_in_bf16_control"] = max(
+                    worst["heat_heads_in_bf16_control"], float(np.abs(
+                        _cell_scores_to_heatmap(det.float())[0].cpu()
+                        .numpy() - h_r).max()))
+        if not (worst["heat"] <= heat_tol and worst["desc"] <= desc_tol
+                and (min_cos is None or worst["min_cos"] >= min_cos)):
+            raise AssertionError(f"SuperPoint {dtype} card vs CPU: {worst}")
+        if worst.get("heat_heads_in_bf16_control", np.inf) <= heat_tol:
+            raise AssertionError(f"SuperPoint bf16: the bf16-head control "
+                                 f"is within the bound: {worst}")
+        out[f"superpoint_{str(dtype)[6:]}"] = worst
+
+    # LightGlue, RANSAC and PnP on 8 pairs; features from a CPU handler
+    # (the mission's bf16 SuperPoint), so both sides see the same inputs
+    from cslam_tpu_torch.comm.bus import InProcessBus, InProcessRouter, \
+        ManualClock
+    h = RGBDHandler({"robot_id": 0, "max_nb_robots": 1,
+                     "frontend.features": "learned"},
+                    InProcessBus(InProcessRouter(), 0), ManualClock(),
+                    max_keypoints=128, device=ref)
+    kfs = []
+    for a, b in pairs:
+        kfs.append([h.compute_local_descriptors(img, depth, INTR)
+                    for img, depth, _ in (a, b)])
+    lg = {d: LightGlue(zoo.shipped_checkpoint("lightglue_synth.npz"),
+                       num_layers=3, device=d) for d in (device, ref)}
+    worst = {"scores": 0.0, "scores_tf32_control": 0.0,
+             "scores_tf32_control_over_rel_tol": 0.0, "ransac_pose": 0.0,
+             "pnp_pose": 0.0}
+    n_success = {"ransac": 0, "pnp": 0}
+    thr = 5.0 / INTR.fx
+    for (xy0, d0, p0, m0, f0), (xy1, d1, p1, m1, f1) in kfs:
+        sc = {}
+        args = (d0, xy0, m0, d1, xy1, m1)
+        for d, model in lg.items():
+            s = model.scores(*args, size=(160, 120))
+            idx, val = mutual_matches(s, torch.from_numpy(m0).to(d), 0.1)
+            sc[d] = (s.cpu().numpy(), idx.cpu().numpy(), val.cpu().numpy())
+        with lightglue_in_tf32():
+            s_x = lg[device].scores(*args, size=(160, 120)).cpu().numpy()
+        (s_c, i_c, v_c), (s_r, i_r, v_r) = sc[device], sc[ref]
+        valid = (m0[:, None] > 0) & (m1[None, :] > 0)
+        if not (np.all(np.isneginf(s_c[~valid])) and
+                np.array_equal(v_c, v_r) and
+                np.array_equal(i_c[v_r], i_r[v_r])):
+            raise AssertionError("LightGlue: other matches on the card")
+        worst["scores"] = max(worst["scores"], float(
+            np.abs(s_c[valid] - s_r[valid]).max()))
+        diff_x = np.abs(s_x[valid] - s_r[valid])
+        worst["scores_tf32_control"] = max(worst["scores_tf32_control"],
+                                           float(diff_x.max()))
+        worst["scores_tf32_control_over_rel_tol"] = max(
+            worst["scores_tf32_control_over_rel_tol"], float((diff_x / (
+                SCORE_TOL + SCORE_REL_TOL * np.abs(s_r[valid]))).max()))
+        v = v_r.astype(np.float32) * m0
+        rays = pnp.normalize_keypoints(xy1, (INTR.fx, INTR.fy, INTR.cx,
+                                             INTR.cy))[i_r]
+        for name, fn, fargs in (
+                ("ransac", matching2d.ransac_rigid3d, (p0, p1[i_r], v)),
+                ("pnp", pnp.ransac_pnp, (p0, rays, v))):
+            kw = {"inlier_threshold": thr} if name == "pnp" else {}
+            res = {}
+            for d in (device, ref):
+                ts = [torch.from_numpy(np.ascontiguousarray(a)).to(d)
+                      for a in fargs]
+                res[d] = [x.cpu().numpy() for x in fn(*ts, **kw)]
+            r_c, r_r = res[device], res[ref]
+            if not (np.array_equal(r_c[2], r_r[2]) and
+                    bool(r_c[4]) == bool(r_r[4])):
+                raise AssertionError(f"{name}: other inliers on the card")
+            err = max(float(np.abs(r_c[0] - r_r[0]).max()),
+                      float(np.abs(r_c[1] - r_r[1]).max()))
+            worst[f"{name}_pose"] = max(worst[f"{name}_pose"], err)
+            n_success[name] += int(bool(r_r[4]))
+    if not (worst["scores"] <= SCORE_TOL and
+            worst["ransac_pose"] <= POSE_TOL
+            and worst["pnp_pose"] <= POSE_TOL):
+        raise AssertionError(f"card vs CPU: {worst}")
+    if not (worst["scores_tf32_control"] > SCORE_TOL and
+            worst["scores_tf32_control_over_rel_tol"] > 1.0):
+        raise AssertionError(f"LightGlue: the TF32 control is within the "
+                             f"bounds: {worst}")
+    out.update(lightglue_ransac_pnp=worst, successes=n_success,
+               pairs=len(kfs))
+    return out
+
+
+class StatsPlaceModel:
+    """Global descriptors from image statistics (tests/test_visual_chain.py's
+    stand-in for the place CNN): views of one scene score near 1."""
+
+    def __init__(self):
+        self.proj = np.random.default_rng(0).standard_normal(
+            (4, 16)).astype(np.float32)
+
+    def compute_embeddings_batch(self, images):
+        out = []
+        for img in images:
+            img = img.astype(np.float32)
+            stats = np.array([img.mean(), img.std(),
+                              img[: img.shape[0] // 2].mean(),
+                              img[:, : img.shape[1] // 2].mean()],
+                             dtype=np.float32)
+            d = np.tanh(stats @ self.proj)
+            out.append(d / np.linalg.norm(d))
+        return np.stack(out)
+
+
+# the shipped-weight chain gates' settings (tests/test_trained_weights.py,
+# tests/test_visual_chain.py): learned front-end, pose error bounds
+# (rotation, translation) against ground truth
+TRAINED_PARAMS = {
+    "frontend.features": "learned",
+    "frontend.lightglue_score_threshold": 0.1,
+    "frontend.max_queue_size": 5,
+    "frontend.keyframe_generation_ratio_threshold": 1.0,
+    "frontend.pnp_min_inliers": 6,
+}
+TRAINED_POSE_TOL = (0.05, 0.15)
+
+
+def _pose_errors(name, R, t, pose_a, pose_b):
+    """Max abs error of the relative pose (R, t) of b in a against ground
+    truth; raises beyond TRAINED_POSE_TOL."""
+    (Ra, ta), (Rb, tb) = pose_a, pose_b
+    err = (float(np.abs(R - Ra.T @ Rb).max()),
+           float(np.abs(t - Ra.T @ (tb - ta)).max()))
+    if not (err[0] <= TRAINED_POSE_TOL[0] and err[1] <= TRAINED_POSE_TOL[1]):
+        raise AssertionError(f"{name}: pose error {err}")
+    return err
+
+
+def check_lightglue_quality(device):
+    """tests/test_trained_weights.py:88-128 on `device`: the shipped
+    LightGlue's F1 above raw mutual matching's by more than 0.05 and
+    precision >= 0.85 at sigma 0.7; returns eval_matching's numbers."""
+    from cslam_tpu_torch.models import zoo
+    from cslam_tpu_torch.models.lightglue import LightGlue
+    from cslam_tpu_torch.models.train_lightglue import eval_matching
+
+    lg = LightGlue(zoo.shipped_checkpoint("lightglue_synth.npz"),
+                   num_layers=3, device=device)
+    ev = eval_matching(lg.model, np.random.default_rng(4321), n_pairs=16,
+                       K=96, sigma=0.7)
+
+    def f1(d):
+        return 2 * d["precision"] * d["recall"] / max(
+            d["precision"] + d["recall"], 1e-9)
+
+    ev["lightglue_f1"], ev["raw_f1"] = f1(ev["lightglue"]), f1(ev["raw"])
+    if not (ev["lightglue_f1"] > ev["raw_f1"] + 0.05 and
+            ev["lightglue"]["precision"] >= 0.85):
+        raise AssertionError(f"LightGlue quality gate: {ev}")
+    return ev
+
+
+def check_offset_revisit(device):
+    """tests/test_trained_weights.py:169 on `device`: the learned chain
+    (handler -> descriptor component -> detection -> verification ->
+    back-end) with the shipped weights verifies a displaced revisit
+    (~0.15 m, 2 deg) of keyframe 0; returns the pose errors."""
+    from cslam_tpu_torch.backend.decentralized_pgo import DecentralizedPGO
+    from cslam_tpu_torch.comm.bus import InProcessBus, InProcessRouter, \
+        ManualClock
+    from cslam_tpu_torch.frontend.global_descriptor_component import \
+        GlobalDescriptorComponent
+    from cslam_tpu_torch.frontend.loop_closure_detection import \
+        GlobalDescriptorLoopClosureDetection
+    from cslam_tpu_torch.frontend.rgbd_handler import RGBDHandler
+    from cslam_tpu_torch.frontend.sim import render_corner_scene
+    from cslam_tpu_torch.visual_mission import INTR, make_pose
+
+    params = dict(TRAINED_PARAMS, **{
+        "robot_id": 0, "max_nb_robots": 1,
+        "frontend.similarity_threshold": 0.9,
+        "frontend.global_descriptor_technique": "custom",
+        "frontend.nb_best_matches": 5,
+        "frontend.intra_loop_min_inbetween_keyframes": 2,
+        "frontend.enable_intra_robot_loop_closures": True,
+        "frontend.detection_publication_max_elems_per_msg": 10,
+        "frontend.enable_sparsification": True,
+        "frontend.use_vertex_cover_selection": True,
+        "frontend.sensor_type": "rgbd",
+        "backend.max_waiting_time_sec": 60.0,
+        "neighbor_management.enable_neighbor_monitoring": False,
+        "neighbor_management.init_delay_sec": 0.0,
+        "neighbor_management.max_heartbeat_delay_sec": 5.0,
+        "evaluation.enable_simulated_rendezvous": False,
+        "evaluation.rendezvous_schedule_file": ""})
+    router, clock = InProcessRouter(), ManualClock()
+    bus = InProcessBus(router, 0)
+    model = StatsPlaceModel()
+    h = RGBDHandler(params, bus, clock, max_keypoints=128, device=device)
+    gdc = GlobalDescriptorComponent(params, bus, model=model, batch_size=1,
+                                    device=device)
+    GlobalDescriptorLoopClosureDetection(params, bus, clock,
+                                         descriptor_model=model,
+                                         device=device)
+    backend = DecentralizedPGO(params, bus, clock, device=device)
+    poses = [make_pose(0.0), make_pose(0.9, 0.25, 0.12),
+             make_pose(1.8, 0.0, 0.22), make_pose(0.9, -0.25, 0.12),
+             make_pose(0.12, 0.06, 0.035)]
+    rng = np.random.default_rng(2)
+    try:
+        for pose in poses:
+            img, depth = render_corner_scene(pose, INTR, rng)
+            h.add_sensor_data(img, depth, INTR, pose)
+            h.process_new_sensor_data()
+            gdc.tick()
+            router.spin_until_idle()
+        loops = [f for f in backend.local_factors if f.is_loop]
+    finally:
+        backend.close()
+        h.close()
+    if not loops:
+        raise AssertionError("offset revisit: no loop closure verified")
+    lc = loops[0]
+    return _pose_errors("offset revisit", lc.R, lc.t,
+                        poses[lc.key_from[1]], poses[lc.key_to[1]])
+
+
+def check_inter_robot(device):
+    """tests/test_trained_weights.py:233 on `device`: robot 0's learned
+    keyframe features cross the bus on a LocalDescriptorsRequest and
+    robot 1 verifies them against its own displaced view; returns the
+    pose errors."""
+    from cslam_tpu_torch.comm import messages as msgs
+    from cslam_tpu_torch.comm.bus import InProcessBus, InProcessRouter, \
+        ManualClock
+    from cslam_tpu_torch.frontend.rgbd_handler import RGBDHandler
+    from cslam_tpu_torch.frontend.sim import render_corner_scene
+    from cslam_tpu_torch.visual_mission import INTR, make_pose
+
+    router = InProcessRouter()
+    results = []
+    router.subscribe("/cslam/inter_robot_loop_closure", results.append)
+    buses = {rid: InProcessBus(router, rid) for rid in (0, 1)}
+    handlers = {rid: RGBDHandler(
+        dict(TRAINED_PARAMS, robot_id=rid, max_nb_robots=2), buses[rid],
+        ManualClock(), max_keypoints=128, device=device) for rid in (0, 1)}
+    rng = np.random.default_rng(5)
+    poses = (make_pose(0.0), make_pose(0.4, -0.12, -0.05))
+    try:
+        for rid, pose in enumerate(poses):
+            img, depth = render_corner_scene(pose, INTR, rng)
+            handlers[rid].add_sensor_data(img, depth, INTR, pose)
+            handlers[rid].process_new_sensor_data()
+        buses[0].publish("cslam/local_descriptors_request",
+                         msgs.LocalDescriptorsRequest(
+                             keyframe_id=0, matches_robot_id=[1],
+                             matches_keyframe_id=[0]))
+        router.spin_until_idle()
+    finally:
+        for handler in handlers.values():
+            handler.close()
+    if len(results) != 1 or not results[0].success:
+        raise AssertionError(f"inter-robot: not verified ({len(results)})")
+    return _pose_errors("inter-robot", *results[0].pose, *poses)
+
+
+def check_trained_gates(device):
+    """The reference's shipped-weight gates on `device`: LightGlue's F1
+    over raw matching, the offset revisit and inter-robot verification;
+    raises on any, returns their numbers."""
+    ev = check_lightglue_quality(device)
+    return {"lightglue_f1": ev["lightglue_f1"], "raw_f1": ev["raw_f1"],
+            "lightglue_precision": ev["lightglue"]["precision"],
+            "pose_errors_rot_trans": {
+                "offset_revisit": check_offset_revisit(device),
+                "inter_robot": check_inter_robot(device)}}
+
+
+def run_visual_phase(kp, card):
+    """Phase 10; returns its fields, raising on any gate."""
+    from cslam_tpu_torch.runtime.tracing import tracer
+    from cslam_tpu_torch.visual_mission import H, W, run_visual_mission
+    n_robots, n_poses = VISUAL["n_robots"], VISUAL["n_poses"]
+    reset_launches(kp)
+    tracer.clear()
+    tracer.enable(None)  # host spans in memory
+    try:
+        res = run_visual_mission(n_robots, n_poses, device="cuda")
+        spans = tracer.totals()
+    finally:
+        tracer.disable()
+        tracer.clear()
+    launches = dict(kp.cosine_topk_pallas.launches)
+    threads = live_non_daemon_threads()
+
+    def secs(*names):
+        return sum(spans.get(n, {"seconds": 0.0})["seconds"] for n in names)
+
+    def count(*names):
+        return sum(spans.get(n, {"count": 0})["count"] for n in names)
+
+    lg_s, ransac_s = secs("lightglue_match"), secs("ransac_3d3d",
+                                                   "ransac_pnp")
+    n_lg, n_ransac = count("lightglue_match"), count("ransac_3d3d",
+                                                     "ransac_pnp")
+    stages = dict(res["timings_s"])
+    stages.update(superpoint_extraction=secs("feature_extract"),
+                  descriptor=secs("descriptor_preprocess",
+                                  "descriptor_forward"),
+                  verification=lg_s + ransac_s)
+    ate = {r: {"odometry": o, "optimized": p}
+           for r, (o, p) in res["ate"].items()}
+    fields = dict(
+        robots=n_robots, keyframes_per_robot=n_poses,
+        image=f"{H}x{W} grey", max_keypoints=128,
+        keyframes=res["keyframes"], stages_s=stages,
+        verifications=res["verifications"],
+        ms_per_verified_pair={
+            "lightglue": lg_s / max(n_lg, 1) * 1e3,
+            "ransac_pnp": ransac_s / max(n_ransac, 1) * 1e3},
+        lightglue_matches=n_lg, ransac_calls=n_ransac,
+        host_copies=res["host_copies"],
+        intra_loop_closures=len(res["intra_loop_closures"]),
+        inter_loop_closures=len(res["inter_loop_closures"]),
+        optimization_count=res["optimization_count"], ate=ate,
+        knn_launches=launches, threads_left=threads, card=card)
+    if launches["cosine_topk_f32"] <= 0:
+        raise AssertionError("the visual mission never launched the kernel")
+    if not res["inter_loop_closures"]:
+        raise AssertionError("no inter-robot loop closure verified")
+    if not ate:
+        raise AssertionError("no robot received optimized estimates")
+    for r, a in ate.items():
+        if not a["optimized"] < a["odometry"]:
+            raise AssertionError(f"robot {r}: optimized ATE {a['optimized']}"
+                                 f" is not below odometry {a['odometry']}")
+    if threads:
+        raise AssertionError(f"non-daemon threads outlived the visual "
+                             f"mission: {threads}")
+    return fields
+
+
+def layer_ops(model, *inputs):
+    """[(operations, dtype)] of one forward: 2 x multiply-adds of every
+    conv and linear layer (with the dtype it computes in), from forward
+    hooks."""
+    counts = []
+
+    def hook(m, inp, out):
+        dt = getattr(m, "compute_dtype", torch.float32)
+        if isinstance(m, torch.nn.Conv2d):
+            k = m.in_channels // m.groups * m.kernel_size[0] * \
+                m.kernel_size[1]
+            counts.append((2.0 * out.numel() * k, dt))
+        else:
+            counts.append((2.0 * out.numel() * m.in_features, dt))
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    try:
+        with torch.no_grad():
+            model(*inputs)
+    finally:
+        for h in hooks:
+            h.remove()
+    return counts
+
+
+def ops_bound_ms(ops, nbytes):
+    """Least time of a forward: each layer's operations at the card's
+    peak for its dtype, against its bytes over HBM bandwidth."""
+    t_ops = sum(f / PEAK_FLOPS[dt] for f, dt in ops) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def time_visual_models(card):
+    """Phase 11: CUDA-event ms of SuperPoint and LightGlue forwards
+    against their bounds."""
+    from cslam_tpu_torch.models import zoo
+    from cslam_tpu_torch.models.cosplace import flax_init_
+    from cslam_tpu_torch.models.lightglue import LightGlue, LightGlueNet
+    from cslam_tpu_torch.models.superpoint import SuperPoint
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    out = {}
+    sp = SuperPoint(zoo.shipped_checkpoint("superpoint_synth.npz"), 128,
+                    device=dev)
+    n_params = sum(p.numel() for p in sp.model.parameters())
+    for h, w in ((120, 160), (480, 640)):
+        x = torch.rand((1, h, w, 1), generator=gen, device=dev)
+        ops = layer_ops(sp.model, x)
+        # input f32, weights f32, det (65) + desc (256) f32 per 8x8 cell
+        nbytes = 4 * (x.numel() + n_params + (h // 8) * (w // 8) * 321)
+        bound, by = ops_bound_ms(ops, nbytes)
+        ms = time_forward(lambda: sp.model(x))
+        flops = sum(f for f, _ in ops)
+        out[f"superpoint_{h}x{w}"] = dict(
+            dtype="bfloat16 convs, f32 heads", ms=ms, flops=flops,
+            bound_ms=bound, bound_by=by, tflops_per_s=flops / ms / 1e9)
+    for name, layers, K, model in (
+            ("lightglue_3l_k128", 3, 128,
+             LightGlue(zoo.shipped_checkpoint("lightglue_synth.npz"),
+                       num_layers=3, device=dev).model),
+            ("lightglue_9l_k1024", 9, 1024, flax_init_(
+                LightGlueNet(num_layers=9), seed=SEED).eval().to(dev))):
+        d = model.dim
+        desc = [torch.nn.functional.normalize(torch.randn(
+            (K, d), generator=gen, device=dev), dim=-1) for _ in range(2)]
+        xy = [torch.rand((K, 2), generator=gen, device=dev) * 2 - 1
+              for _ in range(2)]
+        m = torch.ones(K, device=dev)
+        args = (desc[0], xy[0], m, desc[1], xy[1], m)
+        # attention products per layer: self 2 x 4 K^2 d, cross 6 K^2 d;
+        # the assignment's similarity 2 K^2 d
+        ops = layer_ops(model, *args) + [
+            (float((14 * layers + 2) * K * K * d), torch.float32)]
+        n_params = sum(p.numel() for p in model.parameters())
+        nbytes = 4 * (2 * K * (d + 3) + n_params + K * K)
+        bound, by = ops_bound_ms(ops, nbytes)
+        ms = time_forward(lambda: model(*args))
+        flops = sum(f for f, _ in ops)
+        out[name] = dict(dtype="float32", layers=layers, keypoints=K,
+                         ms=ms, flops=flops, bound_ms=bound, bound_by=by,
+                         tflops_per_s=flops / ms / 1e9)
+    out["card"] = card
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -852,7 +1421,7 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     reset_launches(kp)
     res = run_slice(4, 1000, descriptor_dim=512, seed=SEED, device="cuda",
-                    nns_method="pallas", rounds=8)
+                    nns_method="pallas", rounds=SLICE_ROUNDS)
     launches = dict(kp.cosine_topk_pallas.launches)
     selected = sum(len(s) for s in res["selected"])
     phase("slice", t0, robots=4, keyframes=4000, descriptor_dim=512,
@@ -953,6 +1522,29 @@ def main():
     check_place_recognition(recog)
     del comps, published
 
+    # 10. the learned visual mission, then card against CPU and the
+    # shipped-weight gates on the card
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    faulthandler.dump_traceback_later(VISUAL_WATCHDOG_S, exit=True)
+    try:
+        visual = run_visual_phase(kp, card)
+        launches_visual = visual["knn_launches"]
+        visual["mission_s"] = time.perf_counter() - t0
+        visual["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        t = time.perf_counter()
+        visual["card_vs_cpu"] = check_visual_on_card("cuda")
+        visual["shipped_weight_gates"] = check_trained_gates("cuda")
+        visual["checks_s"] = time.perf_counter() - t
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    phase("visual", t0, **visual)
+
+    # 11. the visual models' forwards, timed
+    t0 = time.perf_counter()
+    phase("visual_models", t0, **time_visual_models(card))
+
     def entry(name, main, n_launches):
         return {"name": name, "route": "cuda", "source": KNN_SOURCE,
                 "replaces": KNN_REPLACES, "launches": n_launches,
@@ -968,6 +1560,7 @@ def main():
                  launches_bf16["cosine_topk_bf16_mma"])
     for e in (f32, bf16):
         e["place_recognition_launches"] = launches_pr[e["name"]]
+        e["visual_launches"] = launches_visual[e["name"]]
 
     emit({"kernels": [f32, bf16]})
     emit({"total_elapsed_s": round(time.perf_counter() - T_START, 3)})

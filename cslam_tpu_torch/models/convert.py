@@ -5,8 +5,10 @@ Port of cslam_tpu/models/convert.py (numpy only): the converters from
 torch state_dicts (torchvision ResNet18 / CosPlace GeoLocalizationNet /
 NetVLAD / SuperPoint / LightGlue) to flat "a/b/c"-keyed dicts as the
 shipped `.npz` files hold them, and their inverses for the port's own
-models: `cosplace_state_dict` and `netvlad_state_dict` carry the
-shipped weights into `models/cosplace.py` and `models/netvlad.py`.
+models: `cosplace_state_dict`, `netvlad_state_dict`,
+`superpoint_state_dict` and `lightglue_state_dict` carry the shipped
+weights into `models/cosplace.py`, `models/netvlad.py`,
+`models/superpoint.py` and `models/lightglue.py`.
 
 Layout mapping: torch conv weights (O, I, H, W) <-> flat (H, W, I, O);
 Dense kernels are transposed; BatchNorm running statistics live under
@@ -269,6 +271,66 @@ def netvlad_state_dict(flat: Dict) -> Dict[str, np.ndarray]:
         flat["params/NetVLADLayer_0/centroids"])
     out["pool.conv.weight"] = _conv_inv(
         flat["params/NetVLADLayer_0/assign_conv/kernel"])
+    return out
+
+
+SUPERPOINT_CONVS = ("conv1a", "conv1b", "conv2a", "conv2b", "conv3a",
+                    "conv3b", "conv4a", "conv4b", "convPa", "convPb",
+                    "convDa", "convDb")
+
+
+def superpoint_state_dict(flat: Dict) -> Dict[str, np.ndarray]:
+    """Flat SuperPointNet variables (as in superpoint_synth.npz) -> the
+    state_dict of models.superpoint.SuperPointNet, whose keys are the
+    MagicLeap names: `convert_superpoint` maps it back exactly."""
+    out: Dict[str, np.ndarray] = {}
+    for i, name in enumerate(SUPERPOINT_CONVS):
+        out[f"{name}.weight"] = _conv_inv(flat[f"params/Conv_{i}/kernel"])
+        out[f"{name}.bias"] = np.asarray(flat[f"params/Conv_{i}/bias"])
+    return out
+
+
+def lightglue_state_dict(flat: Dict, num_layers: int
+                         ) -> Dict[str, np.ndarray]:
+    """Flat LightGlueNet variables (as in lightglue_synth.npz) -> the
+    state_dict of models.lightglue.LightGlueNet, in the official
+    cvg/LightGlue names with the one assignment head at
+    `log_assignment.<num_layers - 1>`: `convert_lightglue` maps it back
+    exactly."""
+    out: Dict[str, np.ndarray] = {}
+
+    def dense(flax_path, torch_key, bias=True):
+        out[f"{torch_key}.weight"] = _dense_inv(
+            flat[f"params/{flax_path}/kernel"])
+        if bias:
+            out[f"{torch_key}.bias"] = np.asarray(
+                flat[f"params/{flax_path}/bias"])
+
+    def layernorm(flax_path, torch_key):
+        out[f"{torch_key}.weight"] = np.asarray(
+            flat[f"params/{flax_path}/scale"])
+        out[f"{torch_key}.bias"] = np.asarray(flat[f"params/{flax_path}/bias"])
+
+    dense("posenc_Wr", "posenc.Wr", bias=False)
+    if "params/input_proj/kernel" in flat:
+        dense("input_proj", "input_proj")
+    for i in range(num_layers):
+        fp = f"transformers_{i}_self_attn"
+        tp = f"transformers.{i}.self_attn"
+        for name in ("Wqkv", "out_proj"):
+            dense(f"{fp}/{name}", f"{tp}.{name}")
+        fp = f"transformers_{i}_cross_attn"
+        tp2 = f"transformers.{i}.cross_attn"
+        for name in ("to_qk", "to_v", "to_out"):
+            dense(f"{fp}/{name}", f"{tp2}.{name}")
+        for f_, t_ in ((f"transformers_{i}_self_attn", tp),
+                       (fp, tp2)):
+            dense(f"{f_}/ffn_0", f"{t_}.ffn.0")
+            layernorm(f"{f_}/ffn_1", f"{t_}.ffn.1")
+            dense(f"{f_}/ffn_3", f"{t_}.ffn.3")
+    last = f"log_assignment.{num_layers - 1}"
+    dense("log_assignment/final_proj", f"{last}.final_proj")
+    dense("log_assignment/matchability", f"{last}.matchability")
     return out
 
 

@@ -1,16 +1,17 @@
-"""ctypes binding of the C++ optimizer state machine.
+"""ctypes bindings of the C++ optimizer state machine and sensor sync.
 
-Port of the `NativeStateMachine` part of cslam_tpu/runtime/native.py.
-The library is compiled from the repo's `native/swarm_state.cpp` alone
-(standard headers only, no threads, no sockets) with g++ under a
+Port of the `NativeStateMachine` and `NativeSensorSync` parts of
+cslam_tpu/runtime/native.py. Each library is compiled from one source
+of the repo's `native/` alone (`swarm_state.cpp`, `sensor_sync.cpp`:
+standard headers only, no threads, no sockets) with g++ under a
 timeout, at first use and never at import, into
 `cslam_tpu_torch/_build/` under a name hashed from the source and the
 flags. It is written to a temporary file and renamed into place, so
 processes building at once do not collide. Nothing is written into
 `native/`, and `make` is not run.
 
-The reference's other bindings (TCP bus, logger, rendezvous, sensor
-sync) are not ported yet.
+The reference's other bindings (TCP bus, logger, rendezvous) are not
+ported yet.
 """
 
 import ctypes
@@ -22,11 +23,12 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG.parent / "native" / "swarm_state.cpp"
+SYNC_SOURCE = _PKG.parent / "native" / "sensor_sync.cpp"
 BUILD_DIR = _PKG / "_build"
 CXX_FLAGS = ["-O2", "-fPIC", "-shared", "-std=c++17"]
 BUILD_TIMEOUT_S = 120
 
-_lib = None
+_libs = {}
 
 _V = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,30 +56,45 @@ SIGNATURES = {
     "cslam_state_on_optimization_started": ([_V], None),
     "cslam_state_on_optimization_done": ([_V], None),
 }
+_U64P = ctypes.POINTER(ctypes.c_uint64)
+_DP = ctypes.POINTER(ctypes.c_double)
+# C signatures of native/sensor_sync.cpp
+SYNC_SIGNATURES = {
+    "cslam_sync_create": ([_I, _D, _I, _D], _V),
+    "cslam_sync_destroy": ([_V], None),
+    "cslam_sync_push": ([_V, _I, _D, ctypes.c_uint64], None),
+    "cslam_sync_push_odom": ([_V, _D, ctypes.c_uint64], None),
+    "cslam_sync_take": ([_V, _U64P, _DP], _I),
+    "cslam_sync_lookup_odom": ([_V, _D, _U64P, _DP], _I),
+}
+# library name prefix and C signatures of each source
+LIBRARIES = {SOURCE: ("libcslam_state", SIGNATURES),
+             SYNC_SOURCE: ("libcslam_sync", SYNC_SIGNATURES)}
 
 
-def library_path() -> Path:
-    """Where the library for the current source and flags lives."""
+def library_path(source: Path = SOURCE) -> Path:
+    """Where the library for `source` and the flags lives."""
     h = hashlib.sha256()
-    h.update(SOURCE.read_bytes())
+    h.update(source.read_bytes())
     h.update(" ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"libcslam_state_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{LIBRARIES[source][0]}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the library if it is not there yet; returns its path."""
-    path = library_path()
+def build(source: Path = SOURCE) -> Path:
+    """Compile `source`'s library if it is not there yet; returns its
+    path."""
+    path = library_path(source)
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(
         f"{path.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = ["g++", *CXX_FLAGS, str(SOURCE), "-o", str(tmp)]
+    cmd = ["g++", *CXX_FLAGS, str(source), "-o", str(tmp)]
     try:
         out = subprocess.run(cmd, capture_output=True, text=True,
                              timeout=BUILD_TIMEOUT_S)
         if out.returncode != 0:
-            raise RuntimeError(f"g++ failed ({out.returncode}) on {SOURCE}:"
+            raise RuntimeError(f"g++ failed ({out.returncode}) on {source}:"
                                f"\n{out.stdout}{out.stderr}")
         os.replace(tmp, path)
     finally:
@@ -86,16 +103,15 @@ def build() -> Path:
     return path
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, (argtypes, restype) in SIGNATURES.items():
+def _load(source: Path = SOURCE):
+    if source not in _libs:
+        lib = ctypes.CDLL(str(build(source)))
+        for name, (argtypes, restype) in LIBRARIES[source][1].items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = restype
-        _lib = lib
-    return _lib
+        _libs[source] = lib
+    return _libs[source]
 
 
 def _ints(vals):
@@ -177,4 +193,53 @@ class NativeStateMachine:
     def close(self):
         if self._handle:
             self._lib.cslam_state_destroy(self._handle)
+            self._handle = None
+
+
+class NativeSensorSync:
+    """C++ approximate-time synchronizer + odometry cache
+    (native/sensor_sync.cpp, the RGB-D / stereo handler's sync core).
+    Payloads are tracked as integer handles; the caller owns the data."""
+
+    def __init__(self, n_streams: int = 2, slop: float = 0.02,
+                 max_queue: int = 10, odom_slop: float = 0.03):
+        self._lib = _load(SYNC_SOURCE)
+        self.n_streams = n_streams
+        self._handle = self._lib.cslam_sync_create(
+            int(n_streams), float(slop), int(max_queue), float(odom_slop))
+
+    def push(self, stream: int, stamp: float, payload_id: int):
+        if not 0 <= stream < self.n_streams:
+            raise ValueError(f"stream {stream} not in [0, {self.n_streams})")
+        self._lib.cslam_sync_push(self._handle, int(stream), float(stamp),
+                                  int(payload_id))
+
+    def push_odom(self, stamp: float, payload_id: int):
+        self._lib.cslam_sync_push_odom(self._handle, float(stamp),
+                                       int(payload_id))
+
+    def take(self):
+        """(stamp, [payload ids]) of the next synchronized tuple, or
+        None."""
+        handles = (ctypes.c_uint64 * self.n_streams)()
+        stamp = ctypes.c_double()
+        if self._lib.cslam_sync_take(self._handle, handles,
+                                     ctypes.byref(stamp)):
+            return stamp.value, list(handles)
+        return None
+
+    def lookup_odom(self, stamp: float):
+        """Nearest odometry (payload_id, stamp) within the slop, else
+        None."""
+        payload = ctypes.c_uint64()
+        out_stamp = ctypes.c_double()
+        if self._lib.cslam_sync_lookup_odom(self._handle, float(stamp),
+                                            ctypes.byref(payload),
+                                            ctypes.byref(out_stamp)):
+            return payload.value, out_stamp.value
+        return None
+
+    def close(self):
+        if self._handle:
+            self._lib.cslam_sync_destroy(self._handle)
             self._handle = None

@@ -88,3 +88,49 @@ def normal(seed: int, shape) -> np.ndarray:
     hi = f(1.0)
     u = np.maximum(lo, (floats * (hi - lo) + lo).astype(f)).astype(f)
     return (f(np.sqrt(2)) * erf_inv_f32(u)).astype(f)
+
+
+def uniform(seed: int, shape) -> np.ndarray:
+    """`jax.random.uniform(jax.random.PRNGKey(seed), shape, float32)` on
+    [0, 1): the 23 mantissa bits of each word under exponent 0, minus 1."""
+    shape = tuple(int(s) for s in shape)
+    bits = random_bits(seed, shape)
+    fbits = (bits >> np.uint32(32 - 23)) | np.uint32(0x3F800000)
+    return (fbits.view(np.float32) - np.float32(1.0)).astype(np.float32)
+
+
+# XLA's CPU pipeline rewrites a cumulative sum longer than this into
+# blocks of this length (its reduce-window rewriter): a sequential sum
+# inside each block, plus the sequential sum of the earlier blocks' totals
+_CUMSUM_BLOCK = 16
+
+
+def xla_cumsum_f32(x: np.ndarray) -> np.ndarray:
+    """`jnp.cumsum` of a float32 vector as the reference's CPU backend
+    rounds it (see _CUMSUM_BLOCK); a prefix sum in another order can
+    differ in the last place."""
+    x = np.asarray(x, np.float32).reshape(-1)
+    n = x.shape[0]
+    if n <= _CUMSUM_BLOCK:
+        return np.cumsum(x, dtype=np.float32)
+    nb = -(-n // _CUMSUM_BLOCK)
+    blocks = np.zeros(nb * _CUMSUM_BLOCK, np.float32)
+    blocks[:n] = x
+    within = np.cumsum(blocks.reshape(nb, _CUMSUM_BLOCK), axis=1,
+                       dtype=np.float32)
+    # exclusive prefix of the block totals: 0, b0, b0 + b1, ...
+    before = np.concatenate([np.zeros(1, np.float32),
+                             xla_cumsum_f32(within[:-1, -1])])
+    return (within + before[:, None]).reshape(-1)[:n].astype(np.float32)
+
+
+def choice_p(seed: int, n: int, shape, p: np.ndarray) -> np.ndarray:
+    """`jax.random.choice(PRNGKey(seed), n, shape, replace=True, p=p)`:
+    r = cumsum(p)[-1] * (1 - uniform), then the first index whose
+    cumulative probability reaches r. int32 indices of `shape`."""
+    p_cuml = xla_cumsum_f32(np.asarray(p, np.float32))
+    if p_cuml.shape[0] != n:
+        raise ValueError(f"p has {p_cuml.shape[0]} entries, expected {n}")
+    r = (p_cuml[-1] * (np.float32(1.0) - uniform(seed, shape))).astype(
+        np.float32)
+    return np.searchsorted(p_cuml, r, side="left").astype(np.int32)

@@ -4,7 +4,9 @@ kernel behind DescriptorDatabase(method="pallas"), the slice on the
 card against the same slice on the CPU, the sim mission through
 SwarmNode on the card against the same mission on the CPU, and the
 place-recognition models (shipped weights) on the card against the
-same models on the CPU.
+same models on the CPU, and the visual slice (SuperPoint, LightGlue,
+RANSAC, PnP, stereo, the top-k tie rule, the visual mission) on the
+card against the CPU.
 
 Every test here needs a card: marked `cuda`, skipped (in a fixture, not
 at import) where there is none. On the card, without JAX installed:
@@ -389,3 +391,91 @@ def test_descriptor_path_on_card(cuda):
     assert kp.cosine_topk_pallas.launches["cosine_topk_f32"] == before + 8
     assert [(m.keyframe0_id, m.keyframe1_id) for m in matches] == \
         [(4, 0), (5, 1), (6, 2), (7, 3)]
+
+
+# -- visual verification (the visual phase's card-against-CPU gates) --------
+
+def _chip_smoke():
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_visual_models_and_ransac_on_card_match_cpu(cuda):
+    """SuperPoint (f32: identical keypoints, 1e-5; bf16: 2e-3 descriptors,
+    3e-3 heatmap, cosine 0.9999) on 8 keyframes, and LightGlue (f32 scores
+    1e-4, identical matches), ransac_rigid3d and ransac_pnp (identical
+    inliers, pose 1e-4) on 8 pairs, card against CPU, each bound exceeded
+    by its lower-precision control (bf16 heads, TF32 products):
+    chip_smoke.py's visual-phase check."""
+    out = _chip_smoke().check_visual_on_card(cuda)
+    assert out["pairs"] == 8 and out["successes"]["ransac"] > 0
+
+
+def test_stereo_on_card_matches_cpu(cuda):
+    """Scan-line ZNCC on the card against the CPU: validity identical,
+    disparities within 1e-4 px."""
+    from cslam_tpu_torch.ops.stereo import stereo_correspondences
+    rng = np.random.default_rng(4)
+    tex = np.kron(rng.uniform(0, 1, (32, 42)).astype(np.float32),
+                  np.ones((4, 4), np.float32))
+    left, right = tex[:120, :160], tex[:120, 5:165]
+    ys, xs = np.meshgrid(np.arange(12, 108, 8), np.arange(12, 148, 8),
+                         indexing="ij")
+    xy = np.stack([xs.ravel(), ys.ravel()], 1).astype(np.float32)
+    mask = np.ones(len(xy), np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        d, v = stereo_correspondences(*(torch.from_numpy(
+            np.ascontiguousarray(a)).to(dev) for a in (left, right, xy,
+                                                       mask)),
+            max_disparity=32)
+        out[str(dev)] = (d.cpu().numpy(), v.cpu().numpy())
+    (d_c, v_c), (d_r, v_r) = out[str(cuda)], out["cpu"]
+    np.testing.assert_array_equal(v_c, v_r)
+    np.testing.assert_allclose(d_c, d_r, rtol=0, atol=1e-4)
+    assert v_r.sum() > 10
+
+
+def test_top_k_padded_slots_on_card_match_cpu(cuda):
+    """Fewer NMS maxima than the keypoint budget: the padded slots
+    (score -inf) hold the lowest pixel indices, on the card as on the
+    CPU (torch.topk promises no order among ties; the port's top_k is a
+    stable sort)."""
+    from cslam_tpu_torch.ops import features
+    img = np.full((120, 160), 0.5, np.float32)
+    img[40:50, 60:70] = 1.0
+    img[80:90, 20:35] = 0.0
+    out = {}
+    for dev in ("cpu", cuda):
+        xy, _, mask = features.detect_keypoints(
+            torch.from_numpy(img).to(dev), max_keypoints=64)
+        out[str(dev)] = (xy.cpu().numpy(), mask.cpu().numpy())
+    (xy_c, m_c), (xy_r, m_r) = out[str(cuda)], out["cpu"]
+    assert 0 < m_r.sum() < 64
+    np.testing.assert_array_equal(m_c, m_r)
+    np.testing.assert_array_equal(xy_c, xy_r)
+    x = torch.full((4096,), -torch.inf, device=cuda)
+    x[[7, 100, 3000]] = torch.tensor([1.0, 2.0, 1.0], device=cuda)
+    vals, idx = features.top_k(x, 10)
+    assert idx.tolist() == [100, 7, 3000, 0, 1, 2, 3, 4, 5, 6]
+
+
+def test_visual_mission_on_card(cuda):
+    """The learned visual mission (2 robots x 8 poses) on the card: the
+    same keyframes as on the CPU, the kernel launched, every evaluated
+    robot's ATE below its odometry's."""
+    from cslam_tpu_torch.visual_mission import run_visual_mission
+    before = kp.cosine_topk_pallas.launches["cosine_topk_f32"]
+    card = run_visual_mission(2, 8, device=cuda)
+    assert kp.cosine_topk_pallas.launches["cosine_topk_f32"] > before
+    cpu = run_visual_mission(2, 8, device="cpu")
+    assert card["keyframe_poses"] == cpu["keyframe_poses"]
+    assert card["inter_loop_closures"]
+    for odo, opt in card["ate"].values():
+        assert opt < odo

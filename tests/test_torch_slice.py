@@ -123,6 +123,15 @@ def test_slice_matches_reference(nns_method):
     np.testing.assert_allclose(est, ref["estimate"], atol=ATE_TOL)
 
 
+# the visual slice's modules: the walk above must reach every one
+VISUAL_MODULES = tuple(f"cslam_tpu_torch.{m}" for m in (
+    "ops.registration", "ops.features", "ops.matching2d", "ops.pnp",
+    "ops.stereo", "models.superpoint", "models.onnx_import",
+    "models.lightglue", "models.convert", "models.zoo",
+    "models.train_lightglue", "runtime.native", "frontend.rgbd_handler",
+    "frontend.map_manager", "utils.jax_random", "visual_mission"))
+
+
 def test_port_imports_neither_jax_nor_the_reference():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -131,6 +140,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "                               'cslam_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        f"missing = [m for m in {VISUAL_MODULES!r} if m not in sys.modules]\n"
+        "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m == 'jax' or\n"
         "       m.startswith('jax.') or m == 'cslam_tpu' or\n"
         "       m.startswith('cslam_tpu.')]\n"
@@ -155,6 +166,12 @@ def test_entry_points_refuse_without_a_card(monkeypatch):
         AlgebraicConnectivityMaximization
     from cslam_tpu_torch.sparsification.mac import MAC
     from cslam_tpu_torch.utils.edges import Edge
+    from cslam_tpu_torch.comm.bus import InProcessBus, InProcessRouter, \
+        ManualClock
+    from cslam_tpu_torch.frontend.rgbd_handler import RGBDHandler
+    from cslam_tpu_torch.models.lightglue import LightGlue
+    from cslam_tpu_torch.models.superpoint import SuperPoint
+    from cslam_tpu_torch.visual_mission import run_visual_mission
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     fg = TFG()
@@ -166,7 +183,13 @@ def test_entry_points_refuse_without_a_card(monkeypatch):
                  lambda: AlgebraicConnectivityMaximization(),
                  lambda: MAC([Edge(0, 1, 1.0)], [Edge(0, 1, 0.5)], 2),
                  lambda: pgo.optimize(fg),
-                 lambda: swarm_slice.run_slice(2, 4)):
+                 lambda: swarm_slice.run_slice(2, 4),
+                 lambda: SuperPoint(),
+                 lambda: LightGlue(num_layers=2),
+                 lambda: RGBDHandler({"robot_id": 0, "max_nb_robots": 1},
+                                     InProcessBus(InProcessRouter(), 0),
+                                     ManualClock()),
+                 lambda: run_visual_mission(2, 4)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     # with the explicit CPU device they run
