@@ -69,6 +69,21 @@ Phases, each printing one JSON line with its own elapsed_s:
      120x160 and 480x640, LightGlue at 3 layers / K = 128 (shipped) and
      9 layers / K = 1024 (Flax-default random init), each against its
      operations / bytes bound;
+ 12. lidar: the lidar mission (cslam_tpu_torch.lidar_mission:
+     LidarHandler with the voxel grid, FPFH, RANSAC and GNC-ICP from the
+     Scan Context yaw and FPFH seeds, SwarmNode with Scan Context place
+     recognition, the broker and decentralized GNC-LM PGO) at 4 robots x
+     40 poses in a 200-cluster world whose raw scans exceed the
+     handler's 8192-point capacity, so that every registration runs at
+     8192, under the mission's watchdog: keyframes, raw and voxelized
+     cloud sizes, registrations by outcome, loop closures, per-stage
+     seconds, ms per registration by stage (host spans), ICP iterations
+     (one host sync each) per registration, ATE per robot, the kernel's
+     launches (0: the lidar path does not search descriptors); then 4
+     keyframe pairs' voxel grid, Scan Contexts, FPFH, GNC-ICP and whole
+     registration on the card against the CPU, and CUDA-event times of
+     one voxel_downsample, fpfh, nearest_neighbors and gnc_icp at
+     N = 8192 against their operations / bytes bounds;
 then the kernels line, the card line, and the result line.
 
 Exits non-zero, printing no result, without a CUDA card, without the
@@ -150,6 +165,22 @@ SCORE_TOL = 1e-4
 # the TF32 control
 SCORE_REL_TOL = 2e-6
 POSE_TOL = 1e-4
+# the lidar phase: 4 robots as every other phase, 40 poses each, in a
+# world (n_clusters, extent, sensor_range) whose raw scans exceed the
+# lidar handler's capacity, so that every registration runs at it
+LIDAR = dict(n_robots=4, n_poses=40, world=(200, 30.0, 20.0))
+LIDAR_CAPACITY = 8192
+LIDAR_WATCHDOG_S = 480
+# keyframe pairs of the phase, ((robot, pose), (robot, pose)), checked
+# card against CPU: two revisits of one robot, two across robots
+LIDAR_CHECK_PAIRS = (((0, 0), (0, 39)), ((1, 5), (1, 34)),
+                     ((0, 20), (1, 10)), ((2, 15), (3, 5)))
+# card against CPU: voxel centroids; FPFH values, and the share of rows
+# whose 16 neighbours agree; ICP and registration poses
+LIDAR_CENTROID_TOL = 1e-6
+LIDAR_FPFH_TOL = 1e-4
+LIDAR_FPFH_ROWS = 0.995
+LIDAR_POSE_TOL = 1e-3
 
 
 def emit(obj):
@@ -1310,6 +1341,451 @@ def time_visual_models(card):
     return out
 
 
+# -- the lidar phase ----------------------------------------------------------
+
+def _np(x):
+    return x.detach().cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+
+
+def _dev(a, device):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(
+        device)
+
+
+def _next_pow2(n):
+    """The padded size of a registration (LidarHandler._register)."""
+    return 1 << (max(n, 1) - 1).bit_length()
+
+
+def lidar_phase_scans(wanted):
+    """{(robot, pose): raw scan} for the wanted (robot, pose) keys, drawn
+    as the lidar phase draws them: its world, its trajectories and its
+    scan stream, every robot's scan in turn."""
+    from cslam_tpu_torch.lidar_mission import SCAN_SEED, LidarWorld, \
+        trajectories
+    world = LidarWorld(*LIDAR["world"])
+    true, _ = trajectories(LIDAR["n_robots"], LIDAR["n_poses"])
+    rng = np.random.default_rng(SCAN_SEED)
+    out = {}
+    for kf in range(max(p for _, p in wanted) + 1):
+        for rid in range(LIDAR["n_robots"]):
+            scan = world.scan(true[rid][kf], rng)
+            if (rid, kf) in wanted:
+                out[rid, kf] = scan
+    return out
+
+
+def _ulps_from_edge(value, width):
+    """Distance in f32 ulps of value from its nearest multiple of width
+    (a bin edge)."""
+    edge = np.float32(round(float(value) / width) * width)
+    return abs(float(value) - float(edge)) / float(np.spacing(
+        np.float32(max(abs(edge), 1e-30))))
+
+
+def _check_sc_on_card(device, clouds):
+    """Scan Contexts of the keyframe clouds on `device` against the CPU:
+    identical, or at most one flipped cell per keyframe whose flipped
+    points lie within one ulp of a ring or sector edge; then the same
+    yaw for every pair and the same best match for every keyframe."""
+    from cslam_tpu_torch.matching.scancontext_matching import \
+        ScanContextMatching
+    from cslam_tpu_torch.ops import scancontext as sc_ops
+    out = {"flipped_cells": 0, "flipped_points": 0,
+           "flip_max_ulps_from_edge": 0.0, "theta_values_differing": 0,
+           "points": 0}
+    scs = {}
+    for key, cloud in clouds.items():
+        got = {}
+        for d in (device, "cpu"):
+            pts = _dev(cloud, d)
+            mask = torch.ones(len(cloud), device=pts.device)
+            got[d] = [_np(x) for x in sc_ops.polar_bins(pts, mask)] + [
+                _np(sc_ops.pointcloud_to_scancontext(pts, mask))]
+        (b_c, th_c, _, sc_c), (b_r, th_r, r_r, sc_r) = got[device], \
+            got["cpu"]
+        cells = int(np.sum(sc_c != sc_r))
+        if cells > 1:
+            raise AssertionError(f"Scan Context {key}: {cells} cells differ")
+        for i in np.nonzero(b_c != b_r)[0]:
+            if b_c[i] // sc_ops.NUM_SECTOR != b_r[i] // sc_ops.NUM_SECTOR:
+                ulps = _ulps_from_edge(r_r[i], sc_ops.MAX_LENGTH /
+                                       sc_ops.NUM_RING)
+            else:
+                ulps = _ulps_from_edge(th_r[i], 360.0 / sc_ops.NUM_SECTOR)
+            out["flip_max_ulps_from_edge"] = max(
+                out["flip_max_ulps_from_edge"], ulps)
+            out["flipped_points"] += 1
+            if ulps > 1.0:
+                raise AssertionError(f"Scan Context {key}: point {i} "
+                                     f"changed bin {ulps} ulps from an edge")
+        out["flipped_cells"] += cells
+        out["theta_values_differing"] += int(np.sum(th_c != th_r))
+        out["points"] += len(cloud)
+        scs[key] = {device: sc_c, "cpu": sc_r}
+    for a, b in LIDAR_CHECK_PAIRS:
+        yaws = [int(sc_ops.scancontext_distances(
+            _dev(scs[b][d], d), _dev(scs[a][d], d)[None])[1][0])
+            for d in (device, "cpu")]
+        if yaws[0] != yaws[1]:
+            raise AssertionError(f"Scan Context yaw {a} -> {b}: {yaws}")
+    best = {}
+    for d in (device, "cpu"):
+        db = ScanContextMatching(device=d)
+        for key, sc in scs.items():
+            db.add_item(sc[d], key)
+        best[d] = [db.search_best(sc[d])[0] for sc in scs.values()]
+    if best[device] != best["cpu"]:
+        raise AssertionError(f"Scan Context best matches: {best}")
+    return out
+
+
+def _check_fpfh_on_card(device, clouds):
+    """FPFH at the registration's padded size on `device` against the
+    CPU. The rows whose 16 neighbours agree (as a set) must be >= 99.5%.
+    An SPFH histogram differs where an angle lies within rounding of a
+    bin edge: each such change must come from values within 1e-4 of a
+    bin apart. The FPFH of a row (1e-4) is compared where its
+    neighbours, its neighbours' neighbours and their histograms agree."""
+    from cslam_tpu_torch.frontend.lidar_handler import _pad_cloud
+    from cslam_tpu_torch.ops import fpfh as fpfh_ops
+    out = {"rows": 0, "rows_neighbours_agree": 0, "rows_compared": 0,
+           "max_abs_err": 0.0, "spfh_rows_differing": 0,
+           "bin_change_max_scaled_diff": 0.0}
+    for key, cloud in clouds.items():
+        padded, mask = _pad_cloud(cloud, _next_pow2(len(cloud)))
+        got = {}
+        for d in (device, "cpu"):
+            pts, m = _dev(padded, d), _dev(mask, d)
+            idx, d2 = fpfh_ops.knn_indices(pts, m, 16)
+            normals = fpfh_ops.normals_from(pts, idx, d2)
+            valid = torch.isfinite(d2) & (m[:, None] > 0)
+            angles, _ = fpfh_ops.darboux_angles(pts, normals, idx)
+            got[d] = (_np(idx), _np(fpfh_ops.spfh(angles, valid)),
+                      [_np(fpfh_ops.scaled_angles(a, lo, hi)) for a, (lo, hi)
+                       in zip(angles, fpfh_ops.ANGLE_RANGES)],
+                      _np(valid), _np(fpfh_ops.fpfh(pts, m)))
+        (i_c, h_c, s_c, _, f_c), (i_r, h_r, s_r, v_r, f_r) = \
+            got[device], got["cpu"]
+        n = len(cloud)
+        i_c, h_c, f_c, i_r, h_r, v_r, f_r = (
+            x[:n] for x in (i_c, h_c, f_c, i_r, h_r, v_r, f_r))
+        agree = np.all(np.sort(i_c, 1) == np.sort(i_r, 1), axis=1)
+        clean = agree & np.all(h_c == h_r, axis=1)
+        compared = clean & np.all(clean[np.minimum(i_r, n - 1)], axis=1)
+        out["rows"] += n
+        out["rows_neighbours_agree"] += int(agree.sum())
+        out["rows_compared"] += int(compared.sum())
+        out["spfh_rows_differing"] += int((agree & ~clean).sum())
+        if compared.any():
+            out["max_abs_err"] = max(out["max_abs_err"], float(
+                np.abs(f_c[compared] - f_r[compared]).max()))
+        same_pair = v_r & (i_c == i_r)
+        for a, b in zip(s_c, s_r):
+            a, b = a[:n][same_pair], b[:n][same_pair]
+            changed = np.clip(a.astype(np.int32), 0, fpfh_ops.N_BINS - 1) \
+                != np.clip(b.astype(np.int32), 0, fpfh_ops.N_BINS - 1)
+            if changed.any():
+                out["bin_change_max_scaled_diff"] = max(
+                    out["bin_change_max_scaled_diff"],
+                    float(np.abs(a - b)[changed].max()))
+    out["share_neighbours_agree"] = out["rows_neighbours_agree"] / out["rows"]
+    if out["share_neighbours_agree"] < LIDAR_FPFH_ROWS:
+        raise AssertionError(f"FPFH neighbourhoods: {out}")
+    if out["max_abs_err"] > LIDAR_FPFH_TOL or \
+            out["bin_change_max_scaled_diff"] > LIDAR_FPFH_TOL:
+        raise AssertionError(f"FPFH card vs CPU: {out}")
+    return out
+
+
+def check_lidar_on_card(device):
+    """The lidar phase's keyframes on `device` against the CPU, on
+    LIDAR_CHECK_PAIRS: the voxel grid at the handler's capacity
+    (identical keep masks, centroids within 1e-6, bitwise equal across
+    two runs on `device`), Scan Contexts (_check_sc_on_card), FPFH
+    (_check_fpfh_on_card), then gnc_icp from the CPU's Scan Context yaw
+    seed, and the closure the handler publishes through its entry points
+    (an intra-robot match request, or a cloud sent by another robot):
+    the same success flag, poses within 1e-3. RANSAC's samples are
+    drawn on the host from each device's correspondence mask
+    (ops/matching2d.draw_samples): equal masks give equal samples by
+    construction. Raises on any gate; returns the readings."""
+    from cslam_tpu_torch.frontend.lidar_handler import _pad_cloud
+    from cslam_tpu_torch.lidar_mission import make_params
+    from cslam_tpu_torch.ops import registration, scancontext as sc_ops
+    scans = lidar_phase_scans({k for pair in LIDAR_CHECK_PAIRS
+                               for k in pair})
+    params = make_params(0, 1)
+    voxel = params["frontend.voxel_size"]
+    out = {"pairs": len(LIDAR_CHECK_PAIRS), "voxel_centroid_err": 0.0,
+           "raw_points": sorted(len(s) for s in scans.values()),
+           "bounds": {"voxel_centroid_err": LIDAR_CENTROID_TOL,
+                      "sc_cells_per_keyframe": 1, "sc_flip_ulps": 1.0,
+                      "fpfh_max_abs_err": LIDAR_FPFH_TOL,
+                      "fpfh_share_neighbours_agree": LIDAR_FPFH_ROWS,
+                      "pose_err": LIDAR_POSE_TOL}}
+    clouds = {}
+    for key, scan in scans.items():
+        padded, mask = _pad_cloud(scan, LIDAR_CAPACITY)
+        (c1, k1), (c2, k2), (c_r, k_r) = (
+            [_np(x) for x in registration.voxel_downsample(
+                _dev(padded, d), _dev(mask, d), voxel)]
+            for d in (device, device, "cpu"))
+        if not (np.array_equal(c1, c2) and np.array_equal(k1, k2)):
+            raise AssertionError(f"voxel grid {key}: two runs differ")
+        if not np.array_equal(k1, k_r):
+            raise AssertionError(f"voxel grid {key}: other voxels kept")
+        out["voxel_centroid_err"] = max(out["voxel_centroid_err"], float(
+            np.abs(c1 - c_r)[k_r > 0].max()))
+        clouds[key] = c_r[k_r > 0]
+    if out["voxel_centroid_err"] > LIDAR_CENTROID_TOL:
+        raise AssertionError(f"voxel centroids card vs CPU: {out}")
+    out["scancontext"] = _check_sc_on_card(device, clouds)
+    out["fpfh"] = _check_fpfh_on_card(device, clouds)
+
+    worst = {"gnc_icp": 0.0, "closure": 0.0}
+    successes = {"gnc_icp": 0, "intra_success": 0, "inter_success": 0}
+    for a, b in LIDAR_CHECK_PAIRS:
+        cap = _next_pow2(max(len(clouds[a]), len(clouds[b])))
+        padded = [x for cloud in (clouds[a], clouds[b])
+                  for x in _pad_cloud(cloud, cap)]
+        cpu = [_dev(x, "cpu") for x in padded]
+        _, yaws = sc_ops.scancontext_distances(
+            sc_ops.pointcloud_to_scancontext(cpu[2], cpu[3]),
+            sc_ops.pointcloud_to_scancontext(cpu[0], cpu[1])[None])
+        yaw = np.float32(-int(yaws[0]) * (2.0 * np.pi / 60.0))
+        icp, closure = {}, {}
+        for d in (device, "cpu"):
+            R0 = registration.yaw_rotation(torch.tensor(yaw, device=d))
+            icp[d] = registration.gnc_icp(
+                *(_dev(x, d) for x in padded), R0, torch.zeros(3, device=d),
+                max_corr_dist=2.0 * voxel,
+                max_iters=params.get("frontend.icp_max_iters", 12),
+                iters_per_level=params.get(
+                    "frontend.icp_max_iters_per_level", 5))
+            closure[d] = _verify_through_handler(d, clouds, a, b)
+        r_c, r_r = icp[device], icp["cpu"]
+        if bool(r_c.success) != bool(r_r.success):
+            raise AssertionError(f"gnc_icp {a} -> {b}: success differs")
+        worst["gnc_icp"] = max(worst["gnc_icp"],
+                               float(np.abs(_np(r_c.R) - _np(r_r.R)).max()),
+                               float(np.abs(_np(r_c.t) - _np(r_r.t)).max()))
+        successes["gnc_icp"] += int(bool(r_r.success))
+        m_c, m_r = closure[device], closure["cpu"]
+        if bool(m_c.success) != bool(m_r.success):
+            raise AssertionError(f"closure {a} -> {b}: success differs")
+        worst["closure"] = max(worst["closure"], *(
+            float(np.abs(x - y).max()) for x, y in zip(m_c.pose, m_r.pose)))
+        kind = "intra" if a[0] == b[0] else "inter"
+        successes[f"{kind}_success"] += int(bool(m_c.success))
+    if max(worst.values()) > LIDAR_POSE_TOL:
+        raise AssertionError(f"ICP card vs CPU: {worst}")
+    out.update(pose_err=worst, closures=successes)
+    return out
+
+
+def _verify_through_handler(device, clouds, a, b):
+    """The closure a LidarHandler on `device` publishes for keyframe
+    clouds a and b ((robot, pose) keys): an intra-robot match request
+    when one robot holds both, else robot a's cloud sent to robot b.
+    Both run _register(src=a, dst=b)."""
+    from cslam_tpu_torch.comm import messages as msgs
+    from cslam_tpu_torch.comm.bus import InProcessBus, InProcessRouter, \
+        ManualClock
+    from cslam_tpu_torch.frontend.lidar_handler import LidarHandler
+    from cslam_tpu_torch.lidar_mission import make_params
+    router = InProcessRouter()
+    bus = InProcessBus(router, b[0])
+    handler = LidarHandler(make_params(b[0], LIDAR["n_robots"]), bus,
+                           ManualClock(), device=device)
+    published = []
+    router.subscribe("/cslam/inter_robot_loop_closure", published.append)
+    bus.subscribe("cslam/intra_robot_loop_closure", published.append)
+    handler.local_keyframes[b[1]] = clouds[b]
+    if a[0] == b[0]:
+        handler.local_keyframes[a[1]] = clouds[a]
+        bus.publish("cslam/local_keyframe_match", msgs.LocalKeyframeMatch(
+            keyframe0_id=a[1], keyframe1_id=b[1]))
+    else:
+        handler.receive_local_descriptors(msgs.LocalPointCloudDescriptors(
+            robot_id=a[0], keyframe_id=a[1], matches_robot_id=[b[0]],
+            matches_keyframe_id=[b[1]], points=clouds[a]))
+    router.spin_until_idle()
+    if len(published) != 1:
+        raise AssertionError(f"{a} -> {b}: {len(published)} closures")
+    return published[0]
+
+
+def run_lidar_phase(kp, card):
+    """Phase 12's mission; returns its fields (check_lidar_phase holds
+    them to the phase's gates)."""
+    from cslam_tpu_torch.lidar_mission import run_lidar_mission
+    from cslam_tpu_torch.runtime.tracing import tracer
+    reset_launches(kp)
+    tracer.clear()
+    tracer.enable(None)  # host spans in memory
+    try:
+        res = run_lidar_mission(LIDAR["n_robots"], LIDAR["n_poses"],
+                                world=LIDAR["world"], device="cuda")
+        spans = tracer.totals()
+    finally:
+        tracer.disable()
+        tracer.clear()
+    launches = dict(kp.cosine_topk_pallas.launches)
+    threads = live_non_daemon_threads()
+
+    def secs(name):
+        return spans.get(name, {"seconds": 0.0})["seconds"]
+
+    n_reg = res["verifications"]
+    stages = dict(res["timings_s"])
+    for name in ("voxel_downsample", "scancontext_embedding"):
+        stages[name] = secs(name)
+    verify = ("scancontext", "fpfh", "ransac_3d3d", "gnc_icp")
+    stages["verification"] = sum(secs(n) for n in verify)
+
+    def spread(xs):
+        return [int(min(xs)), float(np.median(xs)), int(max(xs))]
+
+    ate = {r: {"odometry": o, "optimized": p}
+           for r, (o, p) in res["ate"].items()}
+    fields = dict(
+        robots=LIDAR["n_robots"], poses_per_robot=LIDAR["n_poses"],
+        world=dict(zip(("n_clusters", "extent", "sensor_range"),
+                       LIDAR["world"])),
+        capacity=LIDAR_CAPACITY, keyframes=res["keyframes"],
+        raw_scan_points_min_median_max=spread(res["scan_sizes"]),
+        cloud_points_min_median_max=spread(res["cloud_sizes"]),
+        register_caps=res["register_caps"], registrations=n_reg,
+        outcomes=res["outcomes"],
+        intra_loop_closures=len(res["intra_loop_closures"]),
+        intra_loop_closures_expected=(
+            "0: the detector proposes none, as the reference's: a Scan "
+            "Context search returns only its best match, the query "
+            "keyframe itself, which match_local_loop_closures drops; "
+            "check_lidar_on_card drives the handler's intra-robot "
+            "verification"),
+        inter_loop_closures=len(res["inter_loop_closures"]),
+        stages_s=stages,
+        ms_per_registration={n: secs(n) / max(n_reg, 1) * 1e3
+                             for n in verify},
+        icp_iterations_per_registration=res["icp_iterations"] / max(n_reg, 1),
+        # gnc_icp reads each iteration's step size back: one sync each
+        icp_host_syncs=res["icp_iterations"],
+        optimization_count=res["optimization_count"], ate=ate,
+        knn_launches=launches,
+        knn_launches_expected="0: lidar robots match Scan Contexts "
+                              "(ScanContextMatching), not the cosine top-k",
+        threads_left=threads, card=card)
+    return fields
+
+
+def check_lidar_phase(fields):
+    """Phase 12's gates; raises on the first that fails."""
+    caps, n_reg = fields["register_caps"], fields["registrations"]
+    if not n_reg or set(caps) != {LIDAR_CAPACITY}:
+        raise AssertionError(f"registrations not all at the {LIDAR_CAPACITY}"
+                             f" cap: {caps}")
+    if not fields["inter_loop_closures"]:
+        raise AssertionError("the lidar mission verified no inter-robot "
+                             "loop closure")
+    closures = fields["card_vs_cpu"]["closures"]
+    if not (closures["intra_success"] and closures["inter_success"]):
+        raise AssertionError(f"the handler verified no intra- or no "
+                             f"inter-robot closure on the card: {closures}")
+    ate = fields["ate"]
+    if sorted(ate) != list(range(LIDAR["n_robots"])):
+        raise AssertionError(f"robots with optimized estimates: {sorted(ate)}")
+    for r, a in ate.items():
+        if not a["optimized"] < a["odometry"]:
+            raise AssertionError(f"robot {r}: optimized ATE {a['optimized']}"
+                                 f" is not below odometry {a['odometry']}")
+    if any(fields["knn_launches"].values()):
+        raise AssertionError(f"the lidar mission launched the cosine top-k: "
+                             f"{fields['knn_launches']}")
+    if fields["threads_left"]:
+        raise AssertionError(f"non-daemon threads outlived the lidar "
+                             f"mission: {fields['threads_left']}")
+
+
+def device_busy_ms(fn):
+    """Device ms of everything one call of fn runs on the card (kernels
+    and copies, from torch.profiler's CUDA activity); None when the
+    profiler records none."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total / 1e3 if total else None
+
+
+def time_lidar_ops(card):
+    """CUDA-event ms of one voxel_downsample, fpfh, nearest_neighbors
+    and gnc_icp at N = 8192 on a pair of the phase's scans, each against
+    its bound: the larger of its operations over the f32 peak (8 per
+    point pair of a squared-distance matrix: 6 in the GEMM, the norms'
+    sum and the addend; selections and the per-point work are not
+    counted) and its bytes (inputs read once, outputs written once) over
+    HBM bandwidth; then the device time of one call (device_busy_ms) and
+    its share of the CUDA-event time: the rest is the card waiting on
+    the host's launches and syncs."""
+    from cslam_tpu_torch.frontend.lidar_handler import _pad_cloud
+    from cslam_tpu_torch.lidar_mission import make_params
+    from cslam_tpu_torch.ops import fpfh as fpfh_ops, registration
+    dev = torch.device("cuda")
+    n = LIDAR_CAPACITY
+    a, b = LIDAR_CHECK_PAIRS[0]
+    scans = lidar_phase_scans({a, b})
+    voxel = make_params(0, 1)["frontend.voxel_size"]
+    raw, raw_m = (_dev(x, dev) for x in _pad_cloud(scans[a], n))
+    clouds = []
+    for key in (a, b):
+        c, k = registration.voxel_downsample(
+            *(_dev(x, dev) for x in _pad_cloud(scans[key], n)), voxel)
+        clouds += [_dev(x, dev) for x in _pad_cloud(
+            _np(c)[_np(k) > 0], n)]
+    src, src_m, dst, dst_m = clouds
+    R0, t0 = torch.eye(3, device=dev), torch.zeros(3, device=dev)
+    icp = registration.gnc_icp(src, src_m, dst, dst_m, R0, t0,
+                               max_corr_dist=2.0 * voxel)
+    nn_passes = icp.iterations + 1
+    pair_ops = 8.0 * n * n
+
+    def row(fn, ops, nbytes, iters):
+        ms = cuda_ms(fn, iters)
+        busy = device_busy_ms(fn)
+        t_ops = ops / PEAK_FLOPS[torch.float32] * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        return dict(ms=ms, bound_ms=max(t_ops, t_bytes),
+                    bound_by="operations" if t_ops >= t_bytes else "bytes",
+                    ops=ops, bytes=nbytes, device_busy_ms=busy,
+                    busy_share=None if busy is None else busy / ms)
+
+    out = {
+        "voxel_downsample": row(
+            lambda: registration.voxel_downsample(raw, raw_m, voxel),
+            0.0, n * 16 * 2, 20),
+        "fpfh": row(lambda: fpfh_ops.fpfh(src, src_m), pair_ops,
+                    n * 16 + n * 33 * 4, 5),
+        "nearest_neighbors": row(
+            lambda: registration.nearest_neighbors(src, src_m, dst, dst_m),
+            pair_ops, 2 * n * 16 + n * 12, 20),
+        "gnc_icp": row(
+            lambda: registration.gnc_icp(src, src_m, dst, dst_m, R0, t0,
+                                         max_corr_dist=2.0 * voxel),
+            nn_passes * pair_ops, 2 * n * 16 + 4 * 48, 3),
+    }
+    out["gnc_icp"].update(iterations=icp.iterations,
+                          host_syncs=icp.iterations)
+    out["points"] = n
+    out["card"] = card
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1545,6 +2021,25 @@ def main():
     t0 = time.perf_counter()
     phase("visual_models", t0, **time_visual_models(card))
 
+    # 12. the lidar mission, then card against CPU and the op timings
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    faulthandler.dump_traceback_later(LIDAR_WATCHDOG_S, exit=True)
+    try:
+        lidar = run_lidar_phase(kp, card)
+        launches_lidar = lidar["knn_launches"]
+        lidar["mission_s"] = time.perf_counter() - t0
+        lidar["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        t = time.perf_counter()
+        lidar["card_vs_cpu"] = check_lidar_on_card("cuda")
+        lidar["checks_s"] = time.perf_counter() - t
+        lidar["ops"] = time_lidar_ops(card)
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    phase("lidar", t0, **lidar)
+    check_lidar_phase(lidar)
+
     def entry(name, main, n_launches):
         return {"name": name, "route": "cuda", "source": KNN_SOURCE,
                 "replaces": KNN_REPLACES, "launches": n_launches,
@@ -1561,6 +2056,7 @@ def main():
     for e in (f32, bf16):
         e["place_recognition_launches"] = launches_pr[e["name"]]
         e["visual_launches"] = launches_visual[e["name"]]
+        e["lidar_launches"] = launches_lidar[e["name"]]
 
     emit({"kernels": [f32, bf16]})
     emit({"total_elapsed_s": round(time.perf_counter() - T_START, 3)})

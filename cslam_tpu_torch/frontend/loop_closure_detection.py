@@ -3,9 +3,12 @@
 Port of cslam_tpu/frontend/loop_closure_detection.py. Every ingested or
 gossiped descriptor goes through the port's `DescriptorDatabase`, whose
 "auto" search runs the hand-written CUDA cosine top-k kernel on a card
-(its plain version on the CPU); `device=` chooses where the matcher,
-its MAC selection and the CosPlace model it builds when no
-descriptor_model is passed run (None = the CUDA card).
+(its plain version on the CPU); lidar robots match Scan Contexts
+(`matching/scancontext_matching.py`) instead. `device=` chooses where
+the matcher, its MAC selection and the model it builds when no
+descriptor_model is passed (CosPlace, or the Scan Context model with
+`frontend.global_descriptor_technique: scancontext`) run (None = the
+CUDA card).
 
 Capability parity with the reference GlobalDescriptorLoopClosureDetection
 (Swarm-SLAM cslam/global_descriptor_loop_closure_detection.py): per
@@ -40,11 +43,6 @@ from cslam_tpu_torch.utils.edges import EdgeInterRobot
 from cslam_tpu_torch.utils.misc import dict_to_list_chunks
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet: pass a descriptor_model")
-
-
 class GlobalDescriptorLoopClosureDetection:
 
     def __init__(self, params: Dict, bus, clock, descriptor_model=None,
@@ -63,7 +61,9 @@ class GlobalDescriptorLoopClosureDetection:
         if descriptor_model is not None:
             self.global_descriptor = descriptor_model
         elif technique == "scancontext":
-            _not_ported("the Scan Context model (frontend/lidar_handler.py)")
+            from cslam_tpu_torch.frontend.lidar_handler import \
+                ScanContextModel
+            self.global_descriptor = ScanContextModel(params, device=device)
         else:
             from cslam_tpu_torch.models.cosplace import CosPlace
             self.global_descriptor = CosPlace(params, device=device)

@@ -29,13 +29,12 @@ class MapManager:
 
 
 def make_sensor_handler(params: Dict, bus, clock, device: DeviceLike = None):
-    """Sensor-type dispatch: stereo / rgbd -> the RGBD-family handler on
-    `device` (None = the CUDA card). The lidar handler comes with the
-    lidar slice."""
+    """Sensor-type dispatch on `device` (None = the CUDA card): stereo /
+    rgbd -> the RGBD-family handler, lidar -> LidarHandler."""
     sensor_type = params.get("frontend.sensor_type", "stereo").lower()
     if sensor_type == "lidar":
-        raise NotImplementedError(
-            "the lidar handler is not ported yet (lidar slice)")
+        from cslam_tpu_torch.frontend.lidar_handler import LidarHandler
+        return LidarHandler(params, bus, clock, device=device)
     from cslam_tpu_torch.frontend.rgbd_handler import RGBDHandler, \
         StereoHandler
     cls = StereoHandler if sensor_type == "stereo" else RGBDHandler

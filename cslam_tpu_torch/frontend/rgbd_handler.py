@@ -58,16 +58,21 @@ class LocalKeyframe:
     feat_mask: Optional[np.ndarray] = None
 
 
-def host_result(result: RansacResult) -> RansacResult:
-    """A RansacResult as numpy arrays, brought over in one copy."""
-    flat = torch.cat([x.reshape(-1).to(torch.float32) for x in result])
-    arr = flat.cpu().numpy()
+def host_result(result):
+    """A result NamedTuple (RansacResult, RegistrationResult) with its
+    tensor fields as numpy arrays, brought over in one copy; other
+    fields pass through."""
+    tensors = [x for x in result if torch.is_tensor(x)]
+    arr = torch.cat([x.reshape(-1).to(torch.float32)
+                     for x in tensors]).cpu().numpy()
     out, at = [], 0
     for x in result:
-        part = arr[at:at + x.numel()].reshape(tuple(x.shape))
-        at += x.numel()
-        out.append(part.astype(bool) if x.dtype == torch.bool else part)
-    return RansacResult(*out)
+        if torch.is_tensor(x):
+            part = arr[at:at + x.numel()].reshape(tuple(x.shape))
+            at += x.numel()
+            x = part.astype(bool) if x.dtype == torch.bool else part
+        out.append(x)
+    return type(result)(*out)
 
 
 class RGBDHandler:

@@ -2,8 +2,9 @@
 
 Port of cslam_tpu/matching/sparse_matching.py: per-robot descriptor
 databases, local/cross-robot best-match search producing candidate
-EdgeInterRobot matches, and MAC-budgeted candidate selection. The lidar
-(Scan Context) databases are not part of this port yet.
+EdgeInterRobot matches, and MAC-budgeted candidate selection. With
+`frontend.sensor_type: lidar` the databases are Scan Context databases
+(`matching/scancontext_matching.py`), else descriptor databases.
 """
 
 from typing import Dict
@@ -12,6 +13,8 @@ import numpy as np
 
 from cslam_tpu_torch.device import DeviceLike, resolve_device
 from cslam_tpu_torch.matching.descriptor_db import DescriptorDatabase
+from cslam_tpu_torch.matching.scancontext_matching import \
+    ScanContextMatching
 from cslam_tpu_torch.sparsification.acm import \
     AlgebraicConnectivityMaximization
 from cslam_tpu_torch.utils.edges import EdgeInterRobot
@@ -26,14 +29,15 @@ class LoopClosureSparseMatching:
         self.node = node
         self.device = resolve_device(device)
         if self.params.get("frontend.sensor_type") == "lidar":
-            raise NotImplementedError(
-                "lidar (Scan Context) matching is not ported yet")
-        method = self.params.get("frontend.nns_method", "auto")
-        storage = self.params.get("frontend.nns_storage", "float32")
+            def make_db():
+                return ScanContextMatching(device=self.device)
+        else:
+            method = self.params.get("frontend.nns_method", "auto")
+            storage = self.params.get("frontend.nns_storage", "float32")
 
-        def make_db():
-            return DescriptorDatabase(method=method, storage=storage,
-                                      device=self.device)
+            def make_db():
+                return DescriptorDatabase(method=method, storage=storage,
+                                          device=self.device)
         self.local_nnsm = make_db()
         self.other_robots_nnsm = {
             i: make_db()

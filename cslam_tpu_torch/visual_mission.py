@@ -23,28 +23,20 @@ from typing import Dict
 import numpy as np
 import torch
 
-from cslam_tpu_torch.backend import pgo
-from cslam_tpu_torch.backend.decentralized_pgo import OptimizerState
-from cslam_tpu_torch.comm.bus import InProcessBus, InProcessRouter, \
-    ManualClock
+from cslam_tpu_torch.comm.bus import InProcessBus
 from cslam_tpu_torch.device import DeviceLike, resolve_device
 from cslam_tpu_torch.frontend.global_descriptor_component import \
     GlobalDescriptorComponent
 from cslam_tpu_torch.frontend.rgbd_handler import CameraIntrinsics, \
     RGBDHandler
 from cslam_tpu_torch.frontend.sim import render_corner_scene
+from cslam_tpu_torch.mission import MISSION_PGO, MissionSwarm, \
+    mission_results, run_stages
 from cslam_tpu_torch.node import SwarmNode
 from cslam_tpu_torch.ops import se3
-from cslam_tpu_torch.utils.evaluation import ate_rmse
 
 H, W = 120, 160
 INTR = CameraIntrinsics(fx=120.0, fy=120.0, cx=80.0, cy=60.0, baseline=0.1)
-DETECTION_ROUNDS = 4
-OPTIMIZATION_ROUNDS = 20
-# a solve that takes longer is a stall: its future raises TimeoutError
-SOLVE_TIMEOUT_S = 300.0
-# full GNC anneal depth, as the reference's visual mission
-MISSION_PGO = pgo.PGOConfig(lm_max_iters=15, cg_max_iters=80)
 # CosPlace's operating point on this mission (the reference's sweep)
 COSPLACE_THRESHOLD = 0.75
 # inter-robot loop-closure candidates selected per detection round
@@ -142,24 +134,15 @@ def make_place_model(device: DeviceLike = None):
     return model
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-class VisualSwarm:
-    """Router, clock, world, and per robot a handler, a descriptor
+class VisualSwarm(MissionSwarm):
+    """The mission's swarm: per robot an RGBDHandler, a descriptor
     component and a SwarmNode."""
 
     def __init__(self, n_robots: int, n_poses: int,
                  features: str = "learned", device: DeviceLike = None):
-        self.device = resolve_device(device)
-        self.n_robots, self.n_poses = n_robots, n_poses
+        super().__init__(n_robots, n_poses, device)
         self.world = SquareWorld()
-        self.router = InProcessRouter()
-        self.clock = ManualClock()
         self.model = make_place_model(self.device)
-        self.nodes, self.handlers = {}, {}
         try:
             for rid in range(n_robots):
                 bus = InProcessBus(self.router, rid)
@@ -176,7 +159,6 @@ class VisualSwarm:
             self.close()
             raise
         self.true, self.odom = trajectories(n_robots, n_poses)
-        self.kf_to_pose = {rid: {} for rid in range(n_robots)}
         self.render_s = 0.0
 
     def feed(self):
@@ -195,77 +177,6 @@ class VisualSwarm:
                     self.kf_to_pose[rid][kf_id] = kf
             self.router.spin_until_idle(max_rounds=2000)
 
-    def detect(self):
-        for _ in range(DETECTION_ROUNDS):
-            for node in self.nodes.values():
-                node.tick_detection_publication()
-            self.router.spin_until_idle(max_rounds=2000)
-            for node in self.nodes.values():
-                node.tick_inter_robot_detection()
-            self.router.spin_until_idle(max_rounds=2000)
-
-    def optimize(self):
-        """Optimization rounds until one solve has finished."""
-        for _ in range(OPTIMIZATION_ROUNDS):
-            for node in self.nodes.values():
-                node.tick_optimization_start()
-            self.router.spin_until_idle()
-            for node in self.nodes.values():
-                node.tick_optimization_loop()
-            self.router.spin_until_idle()
-            for node in self.nodes.values():
-                be = node.backend
-                if be.optimizer_state == OptimizerState.OPTIMIZATION and \
-                        be._optimization_future is not None:
-                    be._optimization_future.result(timeout=SOLVE_TIMEOUT_S)
-                    be.check_result_and_finish_optimization()
-            self.router.spin_until_idle()
-            if any(n.backend.optimization_count > 0
-                   for n in self.nodes.values()):
-                for node in self.nodes.values():
-                    node.tick_optimization_loop()
-                self.router.spin_until_idle()
-                return
-        raise AssertionError("optimization never completed")
-
-    def close(self):
-        for node in self.nodes.values():
-            node.close()
-        for handler in self.handlers.values():
-            handler.close()
-
-    def loop_closures(self):
-        """(intra-robot loop factors, inter-robot closures): every robot
-        stores every broadcast inter-robot closure, so those are
-        counted once."""
-        intra = sorted((rid, f.key_from, f.key_to)
-                       for rid, n in self.nodes.items()
-                       for f in n.backend.local_factors if f.is_loop)
-        inter = sorted({(tuple(lc.key_from), tuple(lc.key_to))
-                        for n in self.nodes.values()
-                        for lcs in
-                        n.backend.inter_robot_loop_closures.values()
-                        for lc in lcs})
-        return intra, inter
-
-    def ate(self):
-        """{robot: (odometry ATE, optimized ATE)} over each robot's own
-        keyframes with estimates (ground truth through the keyframe ->
-        pose index map); robots with fewer than 3 are left out."""
-        out = {}
-        for rid in range(self.n_robots):
-            gt_t = np.stack([p[1] for p in self.true[rid]])
-            est = self.nodes[rid].backend.current_pose_estimates
-            own = [k for k in sorted(est) if k[0] == rid
-                   and k[1] in self.kf_to_pose[rid]]
-            if len(own) < 3:
-                continue
-            idx = [self.kf_to_pose[rid][k[1]] for k in own]
-            est_t = np.stack([est[k][1] for k in own])
-            raw = np.stack([self.odom[rid][1][i] for i in idx])
-            out[rid] = (ate_rmse(raw, gt_t[idx]), ate_rmse(est_t, gt_t[idx]))
-        return out
-
 
 def run_visual_mission(n_robots: int = 3, n_poses: int = 12,
                        features: str = "learned",
@@ -279,35 +190,14 @@ def run_visual_mission(n_robots: int = 3, n_poses: int = 12,
     device-to-host copy counts, and per robot (odometry ATE, optimized
     ATE)."""
     dev = resolve_device(device)
-    timings = {}
     t0 = time.perf_counter()
     swarm = VisualSwarm(n_robots, n_poses, features, dev)
     try:
-        timings["build"] = time.perf_counter() - t0
-        for stage, fn in (("feed", swarm.feed),
-                          ("detection", swarm.detect),
-                          ("optimization", swarm.optimize)):
-            _sync(dev)
-            t = time.perf_counter()
-            fn()
-            _sync(dev)
-            timings[stage] = time.perf_counter() - t
+        timings = {"build": time.perf_counter() - t0}
+        timings.update(run_stages(swarm))
         timings["render"] = swarm.render_s
-        intra, inter = swarm.loop_closures()
-        return {
-            "timings_s": timings,
-            "keyframes": sum(len(m) for m in swarm.kf_to_pose.values()),
-            "keyframe_poses": {r: sorted(m.values())
-                               for r, m in swarm.kf_to_pose.items()},
-            "intra_loop_closures": intra,
-            "inter_loop_closures": inter,
-            "verifications": sum(h.log_verifications
-                                 for h in swarm.handlers.values()),
-            "host_copies": sum(h.log_host_copies
-                               for h in swarm.handlers.values()),
-            "optimization_count": {rid: n.backend.optimization_count
-                                   for rid, n in swarm.nodes.items()},
-            "ate": swarm.ate(),
-        }
+        return dict(mission_results(swarm), timings_s=timings,
+                    host_copies=sum(h.log_host_copies
+                                    for h in swarm.handlers.values()))
     finally:
         swarm.close()

@@ -5,8 +5,9 @@ card against the same slice on the CPU, the sim mission through
 SwarmNode on the card against the same mission on the CPU, and the
 place-recognition models (shipped weights) on the card against the
 same models on the CPU, and the visual slice (SuperPoint, LightGlue,
-RANSAC, PnP, stereo, the top-k tie rule, the visual mission) on the
-card against the CPU.
+RANSAC, PnP, stereo, the top-k tie rule, the visual mission) and the
+lidar slice (voxel grid, Scan Context, FPFH, GNC-ICP, registration at
+8192 points, the lidar mission) on the card against the CPU.
 
 Every test here needs a card: marked `cuda`, skipped (in a fixture, not
 at import) where there is none. On the card, without JAX installed:
@@ -479,3 +480,70 @@ def test_visual_mission_on_card(cuda):
     assert card["inter_loop_closures"]
     for odo, opt in card["ate"].values():
         assert opt < odo
+
+
+# -- the lidar path (the lidar phase's card-against-CPU gates) -------------------
+
+def test_lidar_ops_on_card_match_cpu(cuda):
+    """The lidar phase's keyframe pairs at the handler's 8192-point
+    capacity: voxel grid (identical keep masks, centroids 1e-6, bitwise
+    equal across two card runs), Scan Contexts (at most one flipped cell
+    per keyframe, within one ulp of an edge; same yaw and best match),
+    FPFH (>= 99.5% of rows with agreeing neighbours, 1e-4), GNC-ICP and
+    the closures the handler publishes through its intra- and
+    inter-robot entry points (same success, poses within 1e-3):
+    chip_smoke.py's lidar-phase check."""
+    out = _chip_smoke().check_lidar_on_card(cuda)
+    assert out["pairs"] == 4
+    assert out["closures"]["intra_success"] > 0
+    assert out["closures"]["inter_success"] > 0
+
+
+def test_lidar_mission_on_card(cuda):
+    """The lidar mission (2 robots x 8 poses of the reference's world) on
+    the card: the same keyframes and loop closures as on the CPU, no
+    cosine top-k launch."""
+    from cslam_tpu_torch.lidar_mission import run_lidar_mission
+    before = dict(kp.cosine_topk_pallas.launches)
+    card = run_lidar_mission(2, 8, device=cuda)
+    assert kp.cosine_topk_pallas.launches == before
+    cpu = run_lidar_mission(2, 8, device="cpu")
+    assert card["keyframe_poses"] == cpu["keyframe_poses"]
+    assert card["inter_loop_closures"] == cpu["inter_loop_closures"]
+    assert card["intra_loop_closures"] == cpu["intra_loop_closures"]
+
+
+def test_lidar_branches_build_on_card(cuda):
+    """make_sensor_handler with sensor_type lidar and a detector with the
+    scancontext technique (no descriptor_model) build on the card; a
+    keyframe published by the handler reaches the detector's Scan
+    Context database there, with the CPU's embedding."""
+    from cslam_tpu_torch.comm.bus import InProcessBus, InProcessRouter, \
+        ManualClock
+    from cslam_tpu_torch.frontend import map_manager
+    from cslam_tpu_torch.frontend.loop_closure_detection import \
+        GlobalDescriptorLoopClosureDetection
+    from cslam_tpu_torch.lidar_mission import DEFAULT_WORLD, LidarWorld, \
+        make_params, make_pose
+    params = make_params(0, 2)
+    router = InProcessRouter()
+    bus = InProcessBus(router, 0)
+    handler = map_manager.make_sensor_handler(params, bus, ManualClock(),
+                                              device=cuda)
+    det = GlobalDescriptorLoopClosureDetection(params, bus, ManualClock(),
+                                               device=cuda)
+    assert type(handler).__name__ == "LidarHandler"
+    assert type(det.global_descriptor).__name__ == "ScanContextModel"
+    assert det.global_descriptor.device.type == "cuda"
+    assert det.lcm.local_nnsm.data.device.type == "cuda"
+    pose = make_pose(0.0)
+    scan = LidarWorld(*DEFAULT_WORLD).scan(pose, np.random.default_rng(0))
+    handler.add_sensor_data(scan, pose)
+    assert handler.process_new_sensor_data() == 0
+    router.spin_until_idle()
+    assert det.lcm.local_nnsm.nb_items == 1
+    from cslam_tpu_torch.frontend.lidar_handler import ScanContextModel
+    np.testing.assert_array_equal(
+        det.lcm.local_nnsm.data[0].cpu().numpy(),
+        ScanContextModel(device="cpu").compute_embedding(
+            handler.local_keyframes[0]))

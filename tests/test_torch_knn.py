@@ -370,9 +370,15 @@ def test_match_local_loop_closures_matches_reference():
 
 
 def test_lidar_branch_not_ported():
-    with pytest.raises(NotImplementedError):
-        LoopClosureSparseMatching(_set_params(**{
-            "frontend.sensor_type": "lidar"}), device="cpu")
+    """The lidar branch (it raised until the lidar slice) builds Scan
+    Context databases on the matcher's device, as the reference."""
+    params = _set_params(**{"frontend.sensor_type": "lidar"})
+    port = LoopClosureSparseMatching(params, device="cpu")
+    ref = JaxLCSM(params)
+    for a, b in ((port.local_nnsm, ref.local_nnsm),
+                 (port.other_robots_nnsm[1], ref.other_robots_nnsm[1])):
+        assert type(a).__name__ == type(b).__name__ == "ScanContextMatching"
+        assert a.device == torch.device("cpu") and a.shape == b.shape
 
 
 @pytest.mark.parametrize("storage", ["float32", "bfloat16"])

@@ -565,17 +565,20 @@ def test_detection_parity_through_serialized_gossip(quant):
 
 
 def test_detection_without_a_model_is_not_ported():
-    """Without a descriptor_model, the lidar technique (Scan Context, not
-    ported yet) raises; CosPlace is ported, and the detector builds it
-    from params on its own device (here disabled: random descriptors)."""
+    """Without a descriptor_model the detector builds its model from
+    params on its own device: the Scan Context model for the lidar
+    technique (ported with the lidar slice; it raised before), CosPlace
+    otherwise (here disabled: random descriptors)."""
+    from cslam_tpu_torch.frontend.lidar_handler import ScanContextModel
     from cslam_tpu_torch.models.cosplace import CosPlace
     router = tbus.InProcessRouter()
     params = dict(_gossip_params(0, "none"),
                   **{"frontend.global_descriptor_technique": "scancontext"})
-    with pytest.raises(NotImplementedError, match="descriptor_model"):
-        tlcd.GlobalDescriptorLoopClosureDetection(
-            params, tbus.InProcessBus(router, 0), tbus.ManualClock(),
-            device="cpu")
+    det = tlcd.GlobalDescriptorLoopClosureDetection(
+        params, tbus.InProcessBus(router, 0), tbus.ManualClock(),
+        device="cpu")
+    assert isinstance(det.global_descriptor, ScanContextModel)
+    assert det.global_descriptor.device == torch.device("cpu")
     det = tlcd.GlobalDescriptorLoopClosureDetection(
         _gossip_params(0, "none"), tbus.InProcessBus(router, 0),
         tbus.ManualClock(), device="cpu")

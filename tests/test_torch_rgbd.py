@@ -506,11 +506,13 @@ def test_map_manager_dispatch():
             params_for(**{"frontend.sensor_type": sensor}),
             jbus.InProcessBus(jbus.InProcessRouter(), 0), jbus.ManualClock())
         assert type(ref).__name__ == cls.__name__
-    with pytest.raises(NotImplementedError):
-        tmm.make_sensor_handler(params_for(**{"frontend.sensor_type":
-                                              "lidar"}),
-                                tbus.InProcessBus(tbus.InProcessRouter(), 0),
-                                tbus.ManualClock(), device="cpu")
+    # the lidar branch (ported with the lidar slice): LidarHandler
+    lidar = params_for(**{"frontend.sensor_type": "lidar"})
+    h = tmm.make_sensor_handler(lidar, tbus.InProcessBus(
+        tbus.InProcessRouter(), 0), tbus.ManualClock(), device="cpu")
+    ref = jmm.make_sensor_handler(lidar, jbus.InProcessBus(
+        jbus.InProcessRouter(), 0), jbus.ManualClock())
+    assert type(h).__name__ == type(ref).__name__ == "LidarHandler"
     rng = np.random.default_rng(0)
     h, _, _ = handler("torch")
     mm = tmm.MapManager(h, {"frontend.map_manager_process_period_ms": 50})

@@ -130,6 +130,11 @@ VISUAL_MODULES = tuple(f"cslam_tpu_torch.{m}" for m in (
     "models.lightglue", "models.convert", "models.zoo",
     "models.train_lightglue", "runtime.native", "frontend.rgbd_handler",
     "frontend.map_manager", "utils.jax_random", "visual_mission"))
+# the lidar slice's modules
+LIDAR_MODULES = tuple(f"cslam_tpu_torch.{m}" for m in (
+    "utils.pointcloud", "ops.scancontext", "ops.fpfh",
+    "matching.scancontext_matching", "frontend.lidar_handler", "mission",
+    "lidar_mission"))
 
 
 def test_port_imports_neither_jax_nor_the_reference():
@@ -140,7 +145,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "                               'cslam_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        f"missing = [m for m in {VISUAL_MODULES!r} if m not in sys.modules]\n"
+        f"missing = [m for m in {VISUAL_MODULES + LIDAR_MODULES!r}\n"
+        "           if m not in sys.modules]\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m == 'jax' or\n"
         "       m.startswith('jax.') or m == 'cslam_tpu' or\n"
@@ -172,6 +178,12 @@ def test_entry_points_refuse_without_a_card(monkeypatch):
     from cslam_tpu_torch.models.lightglue import LightGlue
     from cslam_tpu_torch.models.superpoint import SuperPoint
     from cslam_tpu_torch.visual_mission import run_visual_mission
+    from cslam_tpu_torch.frontend.lidar_handler import LidarHandler, \
+        ScanContextModel
+    from cslam_tpu_torch.lidar_mission import make_params as lidar_params, \
+        run_lidar_mission
+    from cslam_tpu_torch.matching.scancontext_matching import \
+        ScanContextMatching
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     fg = TFG()
@@ -189,7 +201,14 @@ def test_entry_points_refuse_without_a_card(monkeypatch):
                  lambda: RGBDHandler({"robot_id": 0, "max_nb_robots": 1},
                                      InProcessBus(InProcessRouter(), 0),
                                      ManualClock()),
-                 lambda: run_visual_mission(2, 4)):
+                 lambda: run_visual_mission(2, 4),
+                 lambda: ScanContextMatching(),
+                 lambda: ScanContextModel(),
+                 lambda: LoopClosureSparseMatching(lidar_params(0, 2)),
+                 lambda: LidarHandler({"robot_id": 0, "max_nb_robots": 1},
+                                      InProcessBus(InProcessRouter(), 0),
+                                      ManualClock()),
+                 lambda: run_lidar_mission(2, 4)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     # with the explicit CPU device they run
