@@ -10,13 +10,14 @@ Phases, each printing one JSON line with its own elapsed_s:
      bf16 kernel must have them, the f32 kernel none: never TF32);
   3. kernel: every kernel against its plain PyTorch version on the card
      through the search entry point (the slice's own shapes, the
-     headline 100k x 512 / B=256 shape in f32 and bf16, k above one
+     launcher's D = 32 search, the headline 100k x 512 / B=256 shape in
+     f32 and bf16, k above one
      pass, ragged batch, depth and n_valid on the tensor-core path,
      duplicate rows, back-to-back searches on one stream), then
      CUDA-event timings of the search, the plain version and a library
      call, and the search's host wall time per call;
   4. slice: the device path at map scale — 4 robots x 1000 keyframes,
-     512-d descriptors: kNN ingestion through the f32 kernel, 4 rounds
+     512-d descriptors: kNN ingestion through the f32 kernel, 2 rounds
      of MAC selection (matrix-free Fiedler path, P = 4096), GNC-LM PGO;
      the kernel's launches are counted over this phase alone;
   5. path check: the same descriptors through the exact (non-kernel)
@@ -84,6 +85,26 @@ Phases, each printing one JSON line with its own elapsed_s:
      registration on the card against the CPU, and CUDA-event times of
      one voxel_downsample, fpfh, nearest_neighbors and gnc_icp at
      N = 8192 against their operations / bytes bounds;
+ 13. g2o: benchmarks/pgo_sphere_bench.py's sphere graph (2500 poses)
+     written with the port's write_g2o and solved by `python -m
+     cslam_tpu_torch.tools.solve_g2o in.g2o -o out.g2o --chordal` on the
+     card in a child process under a hard deadline: the CLI's JSON (its
+     platform must be cuda, its final cost below the initial), the
+     process's wall seconds, and the ATE of the re-read output against
+     the ground truth, which must be far below the odometry's;
+ 14. launch: four `python -m cslam_tpu_torch.launch --robot-id i` robot
+     processes on the card over the C++ TCP bus (the synthetic world at
+     the launcher's D = 32, 200 keyframes each, periodic checkpoints,
+     the native logger); robot 1 is killed with SIGKILL once its
+     checkpoint holds a third of its keyframes and restarted with
+     --resume. Every child runs in its own session with its output in a
+     file and a hard deadline, past which every robot's process group is
+     killed and the phase fails with the tails of their logs. Per robot:
+     device, keyframes, closures, optimizations, comm bytes, the
+     kernel's launches, detection and optimization tick latencies, ATE;
+     every robot on cuda:0 with launches, closures and an optimized ATE
+     below its odometry's, robot 1 resumed and verifying new closures,
+     no child left;
 then the kernels line, the card line, and the result line.
 
 Exits non-zero, printing no result, without a CUDA card, without the
@@ -93,8 +114,12 @@ package, or when any phase fails. Uses no JAX.
 import contextlib
 import faulthandler
 import json
+import os
+import shutil
+import signal
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -103,14 +128,16 @@ import numpy as np
 import torch
 
 T_START = time.perf_counter()
+REPO = Path(__file__).resolve().parent
 SEED = 0
 HEADLINE = dict(n_cap=131072, n_valid=100000, dim=512, batch=256, k=10)
 # the slice's own search shape: one robot's database after ingestion
 # (1000 keyframes in a 1024-row buffer), one query, best match only
 MAIN_SHAPE = dict(n_cap=1024, n_valid=1000, dim=512, batch=1, k=1)
 # MAC selection rounds of the slice phase: 8 before the visual phases
-# came, cut to 4 to keep the script in its time limit (PERF.md §4)
-SLICE_ROUNDS = 4
+# came, cut to 4 for them and to 2 for the launch phase, to keep the
+# script in its time limit (PERF.md §4)
+SLICE_ROUNDS = 2
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -143,6 +170,11 @@ DESC_SHAPES = {
                        torch.float32),
     "recall_d128_f32": (dict(n_cap=1024, n_valid=32, dim=128, batch=32,
                              k=2), torch.float32),
+    # a launcher robot's search: one database after the launch phase's
+    # mission (200 keyframes of D = 32 in the database's 1024-row
+    # buffer), the best match of one descriptor
+    "launcher_d32_f32": (dict(n_cap=1024, n_valid=200, dim=32, batch=1,
+                              k=1), torch.float32),
 }
 
 
@@ -181,6 +213,35 @@ LIDAR_CENTROID_TOL = 1e-6
 LIDAR_FPFH_TOL = 1e-4
 LIDAR_FPFH_ROWS = 0.995
 LIDAR_POSE_TOL = 1e-3
+# the g2o phase: benchmarks/pgo_sphere_bench.py's sphere graph (2500
+# poses, rings of 50, 0.02 measurement noise, seed 0), solved by the
+# solve_g2o CLI in a child process under a hard deadline; the solve must
+# bring the ATE below this share of the odometry's (the reference
+# records 28.8 m -> 0.106 m, benchmarks/PGO_SPHERE.json)
+SPHERE = dict(n=2500, ring=50, meas_noise=0.02, seed=0)
+SPHERE_ATE_SHARE = 0.1
+G2O_DEADLINE_S = 300
+# the launch phase: four robot processes of `python -m
+# cslam_tpu_torch.launch` on the card over the TCP bus, the synthetic
+# world at the launcher's own width (D = 32), one keyframe per 0.1 s;
+# robot 1 is killed once its checkpoint holds LAUNCH_KILL_AT_KF
+# keyframes (a third of its stream) and restarted with --resume for the
+# rest of the mission. The mission outlasts the protocol's own recovery:
+# an optimizer that asked the killed robot for its pose graph waits
+# backend.max_waiting_time_sec (60 s) before its next round, so 100 s
+# leave a round with every robot after it (at 75 s the last solve could
+# predate it). The resumed robot must not outlive its peers: a robot
+# left with no neighbour solves its own graph alone, odometry only, and
+# adopts that. So its duration ends LAUNCH_END_MARGIN_S before the
+# earliest peer's (each robot's loop starts when its first checkpoint
+# appears), which covers its own start-up. Every child gets its duration
+# plus LAUNCH_STARTUP_S (interpreter, torch, CUDA context, libraries)
+# before it is killed.
+LAUNCH = dict(robots=4, sim_poses=200, sim_kf_period=0.1, duration=100.0,
+              base_port=21700, checkpoint_period=1.0, device="cuda")
+LAUNCH_KILL_AT_KF = 66
+LAUNCH_END_MARGIN_S = 20.0
+LAUNCH_STARTUP_S = 90.0
 
 
 def emit(obj):
@@ -1785,6 +1846,332 @@ def time_lidar_ops(card):
     out["card"] = card
     return out
 
+def make_sphere_graph(n, ring, meas_noise, seed):
+    """benchmarks/pgo_sphere_bench.py's make_sphere_graph on the port
+    (that file imports JAX): a spiral of poses over a sphere with
+    odometry and inter-ring loop closures, noisy measurements, vertices
+    initialized by integrating the noisy odometry. Returns the graph,
+    the ground-truth translations and the odometry's."""
+    from cslam_tpu_torch.backend.factor_graph import (BetweenFactor,
+                                                      FactorGraph,
+                                                      diag_sqrt_info)
+    from cslam_tpu_torch.ops import se3
+
+    rng = np.random.default_rng(seed)
+    radius = 30.0
+    ks = np.arange(n)
+    theta = 2 * np.pi * (ks % ring) / ring
+    phi = np.pi * (ks / n - 0.5)
+    t_gt = (radius * np.stack([np.cos(phi) * np.cos(theta),
+                               np.cos(phi) * np.sin(theta),
+                               np.sin(phi)], axis=1)).astype(np.float32)
+    w_gt = np.stack([np.zeros(n), phi * 0.3, theta + np.pi / 2],
+                    axis=1).astype(np.float32)
+    R_gt = se3.so3_exp(torch.from_numpy(w_gt)).numpy()
+
+    def rel_batch(ii, jj):
+        R = np.einsum("nba,nbc->nac", R_gt[ii], R_gt[jj])
+        t = np.einsum("nba,nb->na", R_gt[ii], t_gt[jj] - t_gt[ii])
+        return R.astype(np.float32), t.astype(np.float32)
+
+    def noisy_batch(R, t):
+        xi = rng.standard_normal((len(t), 6)).astype(np.float32) * meas_noise
+        dR, dt = (x.numpy() for x in se3.se3_exp(torch.from_numpy(xi)))
+        return (np.einsum("nab,nbc->nac", R, dR).astype(np.float32),
+                (t + dt).astype(np.float32))
+
+    fg = FactorGraph()
+    sq = diag_sqrt_info([meas_noise] * 3 + [meas_noise * 5] * 3)
+    odo_R, odo_t = noisy_batch(*rel_batch(ks[:-1], ks[1:]))
+    for k in range(n - 1):
+        fg.add_between(BetweenFactor((0, k), (0, k + 1), odo_R[k], odo_t[k],
+                                     sq))
+    loop_to = np.asarray([k for k in range(ring, n) if k % 2 == 0])
+    loop_from = loop_to - ring
+    lc_R, lc_t = noisy_batch(*rel_batch(loop_from, loop_to))
+    for idx in range(len(loop_to)):
+        fg.add_between(BetweenFactor((0, int(loop_from[idx])),
+                                     (0, int(loop_to[idx])),
+                                     lc_R[idx], lc_t[idx], sq, is_loop=True))
+    R_est, t_est = [R_gt[0]], [t_gt[0]]
+    for R, t in zip(odo_R, odo_t):
+        R_est.append(R_est[-1] @ R)
+        t_est.append(R_est[-2] @ t + t_est[-1])
+    for k in range(n):
+        fg.add_node((0, k), R_est[k], t_est[k])
+    fg.set_prior((0, 0), R_gt[0], t_gt[0])
+    return fg, t_gt, np.stack(t_est)
+
+
+def spawn(cmd, log_path, env):
+    """Start a child in its own session (so that its whole process group
+    can be killed), its stdout and stderr into the file `log_path`."""
+    with open(log_path, "w") as log:
+        return subprocess.Popen(cmd, cwd=REPO, env=env, stdout=log,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+
+
+def kill_group(proc):
+    """SIGKILL the child's process group and reap the child."""
+    with contextlib.suppress(ProcessLookupError):
+        os.killpg(proc.pid, signal.SIGKILL)
+    proc.wait(timeout=60)
+
+
+def group_alive(proc) -> bool:
+    """Whether any process of the (reaped) child's group is left."""
+    proc.poll()
+    try:
+        os.killpg(proc.pid, 0)
+    except ProcessLookupError:
+        return False
+    return True
+
+
+def log_tail(path, n_bytes=3000):
+    with contextlib.suppress(OSError):
+        return Path(path).read_text(errors="replace")[-n_bytes:]
+    return ""
+
+
+def run_g2o_phase(card):
+    """The sphere graph written with the port's write_g2o, solved by
+    `python -m cslam_tpu_torch.tools.solve_g2o in.g2o -o out.g2o
+    --chordal` on the card in a child process under G2O_DEADLINE_S, the
+    output read back and held against the ground truth."""
+    from cslam_tpu_torch.backend.g2o import read_g2o, write_g2o
+    from cslam_tpu_torch.utils.evaluation import ate_rmse
+    fg, t_gt, t_odom = make_sphere_graph(**SPHERE)
+    with tempfile.TemporaryDirectory() as tmp:
+        src, dst = os.path.join(tmp, "in.g2o"), os.path.join(tmp, "out.g2o")
+        log = os.path.join(tmp, "solve.log")
+        write_g2o(fg, src)
+        cmd = [sys.executable, "-m", "cslam_tpu_torch.tools.solve_g2o", src,
+               "-o", dst, "--chordal"]
+        t0 = time.perf_counter()
+        proc = spawn(cmd, log, dict(os.environ))
+        try:
+            proc.wait(timeout=G2O_DEADLINE_S)
+        except subprocess.TimeoutExpired:
+            kill_group(proc)
+            raise AssertionError(f"solve_g2o passed its {G2O_DEADLINE_S} s "
+                                 f"deadline:\n{log_tail(log)}") from None
+        process_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"solve_g2o exited {proc.returncode}:\n"
+                                 f"{log_tail(log)}")
+        summary = json.loads(Path(log).read_text().strip().splitlines()[-1])
+        out = read_g2o(dst)
+        est = np.stack([out.t[out.key_to_index[(0, k)]]
+                        for k in range(SPHERE["n"])])
+    return dict(summary, process_wall_s=process_s,
+                ate_odometry_m=ate_rmse(t_odom, t_gt),
+                ate_optimized_m=ate_rmse(est, t_gt), card=card)
+
+
+def check_g2o_phase(res):
+    if res["platform"] != "cuda":
+        raise AssertionError(f"solve_g2o ran on {res['platform']}")
+    if res["poses"] != SPHERE["n"]:
+        raise AssertionError(f"solve_g2o read {res['poses']} poses")
+    if not res["final_cost"] < res["initial_cost"]:
+        raise AssertionError(f"final cost {res['final_cost']} is not below "
+                             f"the initial {res['initial_cost']}")
+    if not res["ate_optimized_m"] < SPHERE_ATE_SHARE * res["ate_odometry_m"]:
+        raise AssertionError(f"sphere ATE {res['ate_optimized_m']} is not "
+                             f"below {SPHERE_ATE_SHARE} x the odometry's "
+                             f"{res['ate_odometry_m']}")
+
+
+def checkpoint_keyframes(manifest) -> int:
+    """The latest own keyframe in a robot's checkpoint, -1 when there is
+    none yet (or it is being swapped in)."""
+    try:
+        with open(manifest) as f:
+            key = json.load(f)["latest_local_key"]
+    except (OSError, ValueError):
+        return -1
+    return -1 if key is None else key[1]
+
+
+def run_launch_phase(card):
+    """Four launcher robot processes on the card over the TCP bus (LAUNCH),
+    robot 1 killed with SIGKILL once its checkpoint holds
+    LAUNCH_KILL_AT_KF keyframes and restarted with --resume for the
+    rest of the mission less LAUNCH_END_MARGIN_S. Each child
+    has a hard deadline; on expiry every child's group is killed and the
+    phase fails with the tails of all robots' logs. Returns each robot's
+    metrics (the launcher's --json-out) and the phase's events."""
+    from cslam_tpu_torch.runtime import native
+    for src in (native.BUS_SOURCE, native.LOGGER_SOURCE, native.SOURCE):
+        native.build(src)  # once here, not in four children at once
+    tmp = tempfile.mkdtemp(prefix="launch_phase_")
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+
+    def cmd(rid, duration, resume=False):
+        c = [sys.executable, "-u", "-m", "cslam_tpu_torch.launch",
+             "--robot-id", str(rid), "--robots", str(LAUNCH["robots"]),
+             "--device", LAUNCH["device"], "--sim",
+             "--sim-poses", str(LAUNCH["sim_poses"]),
+             "--sim-kf-period", str(LAUNCH["sim_kf_period"]),
+             "--duration", str(duration),
+             "--base-port", str(LAUNCH["base_port"]),
+             "--json-out", os.path.join(tmp, "metrics"),
+             "--checkpoint-dir", os.path.join(tmp, "ckpt"),
+             "--checkpoint-period", str(LAUNCH["checkpoint_period"]),
+             "--log-folder", os.path.join(tmp, "logs")]
+        return c + ["--resume"] if resume else c
+
+    logs = {rid: os.path.join(tmp, f"robot{rid}.log")
+            for rid in range(LAUNCH["robots"])}
+    procs, deadlines = {}, {}
+
+    def start(rid, duration, resume=False, log=None):
+        procs[rid] = spawn(cmd(rid, duration, resume), log or logs[rid], env)
+        deadlines[rid] = time.monotonic() + duration + LAUNCH_STARTUP_S
+
+    def fail(why):
+        for p in procs.values():
+            kill_group(p)
+        tails = "\n".join(f"--- robot {r} ({path}):\n{log_tail(path)}"
+                          for r, path in logs.items())
+        raise AssertionError(f"launch phase: {why}\n{tails}")
+
+    t0 = time.monotonic()
+    events = {"loop_start_s": {}, "exit_s": {}}
+    manifests = {rid: os.path.join(tmp, "ckpt", f"robot{rid}",
+                                   "manifest.json")
+                 for rid in range(LAUNCH["robots"])}
+    peers = [rid for rid in range(LAUNCH["robots"]) if rid != 1]
+    try:
+        for rid in range(LAUNCH["robots"]):
+            start(rid, LAUNCH["duration"])
+        while checkpoint_keyframes(manifests[1]) < LAUNCH_KILL_AT_KF or \
+                len(events["loop_start_s"]) < LAUNCH["robots"]:
+            for rid, p in procs.items():
+                if rid not in events["loop_start_s"] and \
+                        os.path.exists(manifests[rid]):
+                    events["loop_start_s"][rid] = time.monotonic() - t0
+                if p.poll() is not None:
+                    fail(f"robot {rid} exited {p.returncode} before the "
+                         f"crash")
+                if time.monotonic() > deadlines[rid]:
+                    fail(f"robot {rid} passed its deadline before the "
+                         f"crash (robot 1's checkpoint must reach "
+                         f"{LAUNCH_KILL_AT_KF} keyframes)")
+            time.sleep(0.1)
+        events["killed_at_s"] = time.monotonic() - t0
+        events["checkpoint_keyframes_at_kill"] = checkpoint_keyframes(
+            manifests[1])
+        kill_group(procs[1])
+        events["killed_returncode"] = procs[1].returncode
+        logs["1_killed"] = logs[1]
+        logs[1] = os.path.join(tmp, "robot1_resumed.log")
+        peers_end = min(events["loop_start_s"][r] for r in peers) + \
+            LAUNCH["duration"]
+        events["resume_duration_s"] = round(
+            peers_end - (time.monotonic() - t0) - LAUNCH_END_MARGIN_S, 1)
+        start(1, events["resume_duration_s"], resume=True)
+        events["resumed_at_s"] = time.monotonic() - t0
+        while len(events["exit_s"]) < LAUNCH["robots"]:
+            if "resumed_loop_start_s" not in events and \
+                    "resumed from checkpoint" in log_tail(logs[1], 100000):
+                events["resumed_loop_start_s"] = time.monotonic() - t0
+            for rid, p in procs.items():
+                if rid not in events["exit_s"] and p.poll() is not None:
+                    events["exit_s"][rid] = time.monotonic() - t0
+                if p.poll() is None and time.monotonic() > deadlines[rid]:
+                    fail(f"robot {rid} passed its deadline")
+            time.sleep(0.1)
+        events["mission_s"] = time.monotonic() - t0
+        events["robot1_exit_before_peers_s"] = \
+            min(events["exit_s"][r] for r in peers) - events["exit_s"][1]
+        for rid, p in procs.items():
+            if p.returncode != 0:
+                fail(f"robot {rid} exited {p.returncode}")
+            if f"[r{rid}] done" not in log_tail(logs[rid], 100000):
+                fail(f"robot {rid} printed no done line")
+        if "resumed from checkpoint" not in log_tail(logs[1], 100000):
+            fail("robot 1 did not resume from its checkpoint")
+        robots = {}
+        for rid in range(LAUNCH["robots"]):
+            with open(os.path.join(tmp, "metrics", f"robot{rid}.json")) as f:
+                robots[rid] = json.load(f)
+        csvs = {rid: os.path.exists(os.path.join(tmp, "logs", f"robot{rid}",
+                                                 "metrics.csv"))
+                for rid in range(LAUNCH["robots"])}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                kill_group(p)
+        left = [rid for rid, p in procs.items() if group_alive(p)]
+        shutil.rmtree(tmp, ignore_errors=True)
+    return {"robots": robots, "events": events, "logger_csvs": csvs,
+            "children_left": left, "card": card}
+
+
+def launch_summary(res):
+    """Per robot: keyframes, closures, optimizations, comm bytes, kernel
+    launches, detection and optimization tick latencies, ATE."""
+    out = {}
+    for rid, m in res["robots"].items():
+        ticks = m["tick_latency"]
+        out[rid] = {
+            "device": m["device"], "keyframes": m["keyframes"],
+            "verified_loop_closures": m["verified_loop_closures"],
+            "optimizations": m["optimizations"],
+            "comm_tx_bytes": m["comm_tx_bytes"],
+            "comm_rx_bytes": m["comm_rx_bytes"],
+            "knn_launches": m["knn_launches"],
+            "tick_ms": {k: ticks[k] for k in ("detection", "opt_start",
+                                              "opt_loop")},
+            "ate_odometry_m": m["ate_odometry_m"],
+            "ate_optimized_m": m["ate_optimized_m"],
+            "resumed_from_keyframe": m["resumed_from_keyframe"],
+            "verified_loop_closures_at_resume":
+                m["verified_loop_closures_at_resume"],
+            "first_loop_closure_s": m["first_loop_closure_s"],
+            "optimized_estimates": m["optimized_estimates"],
+            "first_optimization_s": m["first_optimization_s"],
+            "solves": [(round(w["wall_s"], 3), w["n_factors"])
+                       for w in m["optimization_walls"]],
+            "slow_detection_ticks": m["slow_detection_ticks"]}
+    return out
+
+
+def check_launch_phase(res):
+    for rid, m in res["robots"].items():
+        if m["device"] != "cuda:0":
+            raise AssertionError(f"robot {rid} ran on {m['device']}")
+        if not sum(m["knn_launches"].values()) > 0:
+            raise AssertionError(f"robot {rid} never launched the kernel")
+        if not m["verified_loop_closures"] > 0:
+            raise AssertionError(f"robot {rid} verified no loop closure")
+        if m["ate_optimized_m"] is None or \
+                not m["ate_optimized_m"] < m["ate_odometry_m"]:
+            raise AssertionError(f"robot {rid}: optimized ATE "
+                                 f"{m['ate_optimized_m']} is not below "
+                                 f"odometry {m['ate_odometry_m']} "
+                                 f"(events {res['events']})")
+        if not res["logger_csvs"][rid]:
+            raise AssertionError(f"robot {rid} wrote no logger CSV")
+    m1 = res["robots"][1]
+    if not (m1["resumed_from_keyframe"] or 0) > 0:
+        raise AssertionError(f"robot 1 resumed from keyframe "
+                             f"{m1['resumed_from_keyframe']}")
+    # liveness regained: the rest of its stream, messages from its peers
+    # and closures verified with them after the resume
+    if m1["keyframes"] != LAUNCH["sim_poses"] or not m1["comm_rx_bytes"] > 0:
+        raise AssertionError(f"robot 1 after the resume: {m1['keyframes']} "
+                             f"keyframes, rx {m1['comm_rx_bytes']} B")
+    if not m1["verified_loop_closures"] > \
+            (m1["verified_loop_closures_at_resume"] or 0):
+        raise AssertionError("robot 1 verified no loop closure after the "
+                             "resume")
+    if res["children_left"]:
+        raise AssertionError(f"children left alive: {res['children_left']}")
+
 
 def main():
     if not torch.cuda.is_available():
@@ -2040,6 +2427,27 @@ def main():
     phase("lidar", t0, **lidar)
     check_lidar_phase(lidar)
 
+    # 13. a g2o file through the solve_g2o CLI on the card
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    g2o = run_g2o_phase(card)
+    phase("g2o", t0, **g2o)
+    check_g2o_phase(g2o)
+
+    # 14. four launcher robot processes on the card over the TCP bus,
+    # one of them killed and resumed from its checkpoint
+    t0 = time.perf_counter()
+    launch = run_launch_phase(card)
+    launches_launcher = {
+        name: sum(m["knn_launches"][name]
+                  for m in launch["robots"].values())
+        for name in kp.cosine_topk_pallas.launches}
+    phase("launch", t0, robots=launch_summary(launch),
+          events=launch["events"], logger_csvs=launch["logger_csvs"],
+          children_left=launch["children_left"],
+          knn_launches=launches_launcher, card=card)
+    check_launch_phase(launch)
+
     def entry(name, main, n_launches):
         return {"name": name, "route": "cuda", "source": KNN_SOURCE,
                 "replaces": KNN_REPLACES, "launches": n_launches,
@@ -2057,6 +2465,7 @@ def main():
         e["place_recognition_launches"] = launches_pr[e["name"]]
         e["visual_launches"] = launches_visual[e["name"]]
         e["lidar_launches"] = launches_lidar[e["name"]]
+        e["launcher_launches"] = launches_launcher[e["name"]]
 
     emit({"kernels": [f32, bf16]})
     emit({"total_elapsed_s": round(time.perf_counter() - T_START, 3)})

@@ -25,8 +25,7 @@ Capability parity with the reference DecentralizedPGO
 - per-robot estimate extraction and sharing (:712-728);
 - waiting timeout back to IDLE (:580-589);
 - heartbeats gated by simulated rendezvous (:730-741);
-- on-demand g2o dump (:369-377): raises NotImplementedError until
-  backend/g2o.py is ported.
+- on-demand g2o dump (:369-377).
 """
 
 import enum
@@ -672,6 +671,16 @@ class DecentralizedPGO:
                            values=values, edges=edges))
 
     def write_current_estimates_callback(self, msg):
-        raise NotImplementedError(
-            "writing the estimates as g2o needs backend/g2o.py, which is "
-            "not ported yet")
+        """Dump the current estimates and the local factors between them
+        as a g2o file at the path `msg` (reference :369-377). The
+        estimates are host arrays: a solve's result leaves the device in
+        FactorGraph.update_estimates."""
+        path = msg if isinstance(msg, str) else msg.decode()
+        from cslam_tpu_torch.backend import g2o
+        fg = FactorGraph()
+        for key, pose in self.current_pose_estimates.items():
+            fg.add_node(key, pose[0], pose[1])
+        for f in self.local_factors:
+            if f.key_from in fg.key_to_index and f.key_to in fg.key_to_index:
+                fg.add_between(f)
+        g2o.write_g2o(fg, path)

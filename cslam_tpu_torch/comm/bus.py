@@ -4,8 +4,9 @@ Port of cslam_tpu/comm/bus.py. Topic semantics mirror the reference:
 cross-robot topics are absolute ("/cslam/...", "/rX/cslam/..."),
 intra-robot topics are namespaced per robot. InProcessBus is a shared
 router for N robot instances in one process — the
-multi-robot-without-a-cluster mode the sim mission runs on. (The C++
-TCP bus of the reference's runtime/native.py is not ported yet.)
+multi-robot-without-a-cluster mode the sim mission runs on. The TCP
+bus between robot processes, with the same interface, is
+runtime/native.py's NativeBus.
 
 Delivery is deferred: published messages queue and deliver on
 spin_once(), reproducing DDS's async callback model deterministically.

@@ -22,6 +22,8 @@ those of tests/test_torch_models.py (f32 max abs 1e-5; bf16 max abs
 places).
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -547,3 +549,74 @@ def test_lidar_branches_build_on_card(cuda):
         det.lcm.local_nnsm.data[0].cpu().numpy(),
         ScanContextModel(device="cpu").compute_embedding(
             handler.local_keyframes[0]))
+
+
+# -- the launcher slice: solve_g2o and checkpoints across devices ------------
+
+def test_solve_g2o_on_card_matches_cpu(cuda, tmp_path, capsys):
+    """The solve_g2o CLI on a 200-pose sphere graph (chip_smoke.py's
+    generator) on the card and with --cpu: the same poses and factors,
+    final costs within 1e-4 relative."""
+    from cslam_tpu_torch.backend.g2o import write_g2o
+    from cslam_tpu_torch.tools import solve_g2o
+    fg, _, _ = _chip_smoke().make_sphere_graph(200, 50, 0.02, 0)
+    src = str(tmp_path / "in.g2o")
+    write_g2o(fg, src)
+    out = {}
+    for name, extra in (("cuda", []), ("cpu", ["--cpu"])):
+        assert solve_g2o.main([src, "--chordal", *extra]) == 0
+        out[name] = json.loads(capsys.readouterr().out.strip()
+                               .splitlines()[-1])
+    assert out["cuda"]["platform"] == "cuda"
+    assert out["cpu"]["platform"] == "cpu"
+    for key in ("poses", "factors", "loop_closures"):
+        assert out["cuda"][key] == out["cpu"][key]
+    assert out["cuda"]["final_cost"] < out["cuda"]["initial_cost"]
+    assert out["cuda"]["final_cost"] == pytest.approx(
+        out["cpu"]["final_cost"], rel=1e-4)
+
+
+def _checkpointed_swarm(device):
+    from cslam_tpu_torch.sim_mission import Swarm
+    s = Swarm(2, 16, device=device)
+    s.feed()
+    s.detect()
+    return s
+
+
+@pytest.mark.parametrize("src,dst", [("cuda", "cpu"), ("cpu", "cuda")])
+def test_checkpoint_moves_between_card_and_cpu(cuda, tmp_path, src, dst):
+    """A node checkpointed on one device restores on the other: its
+    databases on the new node's device, the same lengths, top-3 results
+    and fixed edges, poses within 1e-6."""
+    from cslam_tpu_torch.comm.bus import InProcessBus, InProcessRouter, \
+        ManualClock
+    from cslam_tpu_torch.node import SwarmNode
+    from cslam_tpu_torch.sim_mission import mission_params
+    from cslam_tpu_torch.utils import checkpoint
+    s = _checkpointed_swarm(src)
+    node2 = SwarmNode(mission_params(0, 2),
+                      InProcessBus(InProcessRouter(), 0), ManualClock(),
+                      device=dst)
+    try:
+        folder = str(tmp_path / "ckpt")
+        checkpoint.save_node(s.nodes[0], folder)
+        checkpoint.load_node(node2, folder)
+        a, b = s.nodes[0].detection.lcm, node2.detection.lcm
+        assert b.local_nnsm.data.device.type == dst
+        assert len(b.local_nnsm) == len(a.local_nnsm) > 0
+        assert len(b.other_robots_nnsm[1]) == len(a.other_robots_nnsm[1])
+        q = s.world.descriptor(0, 3)
+        items_a, sims_a = a.local_nnsm.search(q, 3)
+        items_b, sims_b = b.local_nnsm.search(q, 3)
+        assert items_b == items_a
+        np.testing.assert_allclose(sims_b, sims_a, atol=1e-5)
+        assert [tuple(e) for e in b.candidate_selector.fixed_edges] == \
+            [tuple(e) for e in a.candidate_selector.fixed_edges]
+        for key, (R, t) in s.nodes[0].backend.odometry_pose_estimates.items():
+            R2, t2 = node2.backend.odometry_pose_estimates[key]
+            np.testing.assert_allclose(R2, R, atol=1e-6)
+            np.testing.assert_allclose(t2, t, atol=1e-6)
+    finally:
+        node2.close()
+        s.close()

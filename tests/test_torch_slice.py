@@ -137,6 +137,11 @@ LIDAR_MODULES = tuple(f"cslam_tpu_torch.{m}" for m in (
     "lidar_mission"))
 
 
+# the launcher slice's modules
+LAUNCHER_MODULES = tuple(f"cslam_tpu_torch.{m}" for m in (
+    "launch", "tools.solve_g2o", "utils.checkpoint", "backend.g2o"))
+
+
 def test_port_imports_neither_jax_nor_the_reference():
     code = (
         "import importlib, pkgutil, sys\n"
@@ -145,7 +150,8 @@ def test_port_imports_neither_jax_nor_the_reference():
         "                               'cslam_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
-        f"missing = [m for m in {VISUAL_MODULES + LIDAR_MODULES!r}\n"
+        f"missing = [m for m in "
+        f"{VISUAL_MODULES + LIDAR_MODULES + LAUNCHER_MODULES!r}\n"
         "           if m not in sys.modules]\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m == 'jax' or\n"
@@ -160,9 +166,10 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert out.stdout.startswith("ok"), out.stdout
 
 
-def test_entry_points_refuse_without_a_card(monkeypatch):
+def test_entry_points_refuse_without_a_card(monkeypatch, tmp_path):
     """No card and no device="cpu": every entry point raises instead of
-    running on the CPU."""
+    running on the CPU (the launcher's robot without `--device cpu`,
+    solve_g2o without `--cpu`)."""
     from cslam_tpu_torch.backend import pgo
     from cslam_tpu_torch.backend.factor_graph import FactorGraph as TFG
     from cslam_tpu_torch.matching.descriptor_db import DescriptorDatabase
@@ -184,6 +191,11 @@ def test_entry_points_refuse_without_a_card(monkeypatch):
         run_lidar_mission
     from cslam_tpu_torch.matching.scancontext_matching import \
         ScanContextMatching
+    from cslam_tpu_torch import launch
+    from cslam_tpu_torch.backend.factor_graph import BetweenFactor as TBF, \
+        diag_sqrt_info as t_sqrt_info
+    from cslam_tpu_torch.backend.g2o import write_g2o
+    from cslam_tpu_torch.tools import solve_g2o
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     fg = TFG()
@@ -208,12 +220,23 @@ def test_entry_points_refuse_without_a_card(monkeypatch):
                  lambda: LidarHandler({"robot_id": 0, "max_nb_robots": 1},
                                       InProcessBus(InProcessRouter(), 0),
                                       ManualClock()),
-                 lambda: run_lidar_mission(2, 4)):
+                 lambda: run_lidar_mission(2, 4),
+                 lambda: launch.main(["--robot-id", "0", "--robots", "1",
+                                      "--sim", "--duration", "0",
+                                      "--base-port", "20600"]),
+                 lambda: solve_g2o.main([str(tmp_path / "none.g2o")])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     # with the explicit CPU device they run
     DescriptorDatabase(device="cpu").add_item(np.ones(4), 0)
     pgo.optimize(fg, device="cpu")
+    assert launch.main(["--robot-id", "0", "--robots", "1", "--sim",
+                        "--duration", "0", "--base-port", "20600",
+                        "--device", "cpu"]) == 0
+    fg.add_between(TBF((0, 0), (0, 1), np.eye(3, dtype=np.float32),
+                       np.ones(3, np.float32), t_sqrt_info([0.1] * 6)))
+    write_g2o(fg, str(tmp_path / "g.g2o"))
+    assert solve_g2o.main([str(tmp_path / "g.g2o"), "--cpu"]) == 0
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):
