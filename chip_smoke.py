@@ -105,7 +105,42 @@ Phases, each printing one JSON line with its own elapsed_s:
      every robot on cuda:0 with launches, closures and an optimized ATE
      below its odometry's, robot 1 resumed and verifying new closures,
      no child left;
+ 15. multichip: the four stages of cslam_tpu_torch.entry's multi-device
+     dry run at full width on meshes of ranks (cslam_tpu_torch.parallel,
+     rank 0 in this process, the others spawned, each in its own
+     session with its log in a file), under a watchdog: d = 4 sharing
+     cuda:0 over gloo, d = 1 over NCCL, and d = device_count over NCCL
+     (one card per rank) where there are 2 cards or more. Per mesh:
+     worker start-up seconds, every rank's backend and device; the
+     kernel table's headline (100,352 x 512, n_valid 100,000, B = 256,
+     k = 10) in f32 and bf16 and the reference test's boundary n_valid,
+     sharded through the kernel in every rank against the single-card
+     kernel search (sims 1e-5, indices equal except among ties within
+     1e-6), the kernel's launches gathered from every rank and the ms
+     per sharded search; then (d > 1) the shipped CosPlace over 64
+     images at crop 224 split over the ranks against the one-process
+     forward; the slice's 4000-pose graph through the factor-sharded
+     solve against the single card's (deterministic algorithms on rank
+     0, each setting also solved with the factors in another order): at
+     the slice's PGOConfig(15, 80) bit for bit on the one-rank mesh; on
+     more ranks at a converged setting, the reference test's
+     iteration-parity tolerances and ATE within 1e-3 m, with t within
+     3x and GNC rounds within one of the single card's own spread (see
+     multichip_pgo); (d > 1) the port's pgo_oracle on
+     tests/test_pgo_oracle.py's graph at 200 poses against both solves
+     and the elastic protocol (three mesh-sharded optimizations, robot
+     0 dying and rejoining); children_left must be 0. Then CUDA-event
+     times of the kernel at a shard (25,088 rows) and at the whole
+     database. The single-card solves come first, as the phase
+     `multichip_reference` under a watchdog of its own;
 then the kernels line, the card line, and the result line.
+
+    python3 chip_smoke.py --only multichip
+
+runs phases 1, 2, the slice (for its pose graph) and 15 alone, then the
+card line and the result line; with two cards or more, phase 15 runs
+only the NCCL mesh of one rank per card (the one-card meshes are the
+whole script's).
 
 Exits non-zero, printing no result, without a CUDA card, without the
 package, or when any phase fails. Uses no JAX.
@@ -114,6 +149,7 @@ package, or when any phase fails. Uses no JAX.
 import contextlib
 import faulthandler
 import json
+import multiprocessing
 import os
 import shutil
 import signal
@@ -127,6 +163,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+# cuBLAS reads this when it first makes a workspace: the multichip
+# phase's solves run with deterministic algorithms, which need it
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 T_START = time.perf_counter()
 REPO = Path(__file__).resolve().parent
 SEED = 0
@@ -236,12 +275,40 @@ G2O_DEADLINE_S = 300
 # earliest peer's (each robot's loop starts when its first checkpoint
 # appears), which covers its own start-up. Every child gets its duration
 # plus LAUNCH_STARTUP_S (interpreter, torch, CUDA context, libraries)
-# before it is killed.
+# before it is killed. The robots solve with --pgo-chordal: initialized
+# from odometry (and the last round's estimates), PGOConfig's capped
+# solve of the swarm graph drops exact closures and robot 0's ATE came
+# out anywhere from 0.137 m to above its odometry's 0.769 m (PERF.md
+# §6, tools/swarm_solve.py).
 LAUNCH = dict(robots=4, sim_poses=200, sim_kf_period=0.1, duration=100.0,
               base_port=21700, checkpoint_period=1.0, device="cuda")
 LAUNCH_KILL_AT_KF = 66
 LAUNCH_END_MARGIN_S = 20.0
 LAUNCH_STARTUP_S = 90.0
+# multichip phase: the four stages of cslam_tpu_torch.entry.dryrun_multichip
+# at full width on meshes of ranks (gloo on one card, NCCL one card per
+# rank); the kernel table's headline split over 4 shards of 25,088 rows
+MULTICHIP = dict(ranks=4, n_cap=100352, n_valid=100000, dim=512, batch=256,
+                 k=10)
+MULTICHIP_BOUNDARY = dict(n_cap=256, dim=16, batch=1, k=3,
+                          n_valid=(1, 32, 33, 128, 255, 256))
+MULTICHIP_SEARCH_TOL = 1e-5   # sims, sharded vs single-card kernel search
+MULTICHIP_TIE = 1e-6          # indices may differ only among such ties
+MULTICHIP_IMAGES = 64         # data-parallel CosPlace batch, crop 224
+MULTICHIP_DESC_TOL = {torch.float32: (1e-4, None),
+                      torch.bfloat16: (2e-3, 0.9999)}
+# tests/test_pgo_oracle.py's graph at 200 poses
+MULTICHIP_ORACLE = dict(poses=200, loops=24, outlier_every=4)
+# the slice's 4000-pose graph at a setting where its solve converges (LM
+# stops on its own, CG mostly on its tolerance); at the slice's
+# PGOConfig(15, 80) CG ends at its cap in every GNC and polish step, and
+# where the solve stops depends on the order of the sums
+MULTICHIP_CONVERGED = dict(lm_max_iters=30, cg_max_iters=400)
+# t of two converged solves that sum in other orders, in units of the
+# single card's own spread (the same factors in another order)
+MULTICHIP_T_SPREAD = 3.0
+MULTICHIP_SEARCH_ITERS = 20
+MULTICHIP_WATCHDOG_S = 480
 
 
 def emit(obj):
@@ -253,12 +320,17 @@ def phase(name, t0, **fields):
           **fields})
 
 
-def nvidia_smi():
+def nvidia_smi_cards():
+    """Every card's `name, power.limit` line from nvidia-smi."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0].strip()
+    return [line.strip() for line in out.stdout.strip().splitlines()]
+
+
+def nvidia_smi():
+    return nvidia_smi_cards()[0]
 
 
 def cuda_ms(fn, iters):
@@ -2020,7 +2092,7 @@ def run_launch_phase(card):
              "--json-out", os.path.join(tmp, "metrics"),
              "--checkpoint-dir", os.path.join(tmp, "ckpt"),
              "--checkpoint-period", str(LAUNCH["checkpoint_period"]),
-             "--log-folder", os.path.join(tmp, "logs")]
+             "--log-folder", os.path.join(tmp, "logs"), "--pgo-chordal"]
         return c + ["--resume"] if resume else c
 
     logs = {rid: os.path.join(tmp, f"robot{rid}.log")
@@ -2134,8 +2206,13 @@ def launch_summary(res):
             "first_loop_closure_s": m["first_loop_closure_s"],
             "optimized_estimates": m["optimized_estimates"],
             "first_optimization_s": m["first_optimization_s"],
-            "solves": [(round(w["wall_s"], 3), w["n_factors"])
+            "optimized_own_keyframes": m["optimized_own_keyframes"],
+            # (wall s, factors, end s from the loop's start, robots)
+            "solves": [(round(w["wall_s"], 3), w["n_factors"],
+                        round(w["end_s"], 1), w["robots"])
                        for w in m["optimization_walls"]],
+            "waiting_timeouts_s": [round(t, 1)
+                                   for t in m["waiting_timeouts_s"]],
             "slow_detection_ticks": m["slow_detection_ticks"]}
     return out
 
@@ -2148,12 +2225,19 @@ def check_launch_phase(res):
             raise AssertionError(f"robot {rid} never launched the kernel")
         if not m["verified_loop_closures"] > 0:
             raise AssertionError(f"robot {rid} verified no loop closure")
+        if m["optimized_own_keyframes"] != m["keyframes"]:
+            raise AssertionError(f"robot {rid}: its adopted estimate holds "
+                                 f"{m['optimized_own_keyframes']} of its "
+                                 f"{m['keyframes']} keyframes (events "
+                                 f"{res['events']}; robots "
+                                 f"{launch_summary(res)})")
         if m["ate_optimized_m"] is None or \
                 not m["ate_optimized_m"] < m["ate_odometry_m"]:
             raise AssertionError(f"robot {rid}: optimized ATE "
                                  f"{m['ate_optimized_m']} is not below "
                                  f"odometry {m['ate_odometry_m']} "
-                                 f"(events {res['events']})")
+                                 f"(events {res['events']}; robots "
+                                 f"{launch_summary(res)})")
         if not res["logger_csvs"][rid]:
             raise AssertionError(f"robot {rid} wrote no logger CSV")
     m1 = res["robots"][1]
@@ -2173,7 +2257,550 @@ def check_launch_phase(res):
         raise AssertionError(f"children left alive: {res['children_left']}")
 
 
-def main():
+def compare_topk(idx, sims, ref_idx, ref_sims, what):
+    """Sharded against single-device (indices, sims), both with missing
+    slots as -inf: the same missing slots, sims within
+    MULTICHIP_SEARCH_TOL, and equal indices except among rows tied
+    within MULTICHIP_TIE (a mismatched row must sit in the other top-k
+    with a sim that close, or tie its last slot). Returns the fields."""
+    idx, sims = idx.cpu().numpy(), sims.cpu().numpy()
+    ref_idx, ref_sims = ref_idx.cpu().numpy(), ref_sims.cpu().numpy()
+    fin = np.isfinite(sims)
+    if idx.shape != ref_idx.shape or not (fin == np.isfinite(ref_sims)).all():
+        raise AssertionError(f"{what}: shapes or missing slots differ")
+    err = float(np.abs(sims[fin] - ref_sims[fin]).max()) if fin.any() else 0.0
+    if not err <= MULTICHIP_SEARCH_TOL:
+        raise AssertionError(f"{what}: sims differ by {err}")
+    ties = 0
+    for b, j in zip(*np.nonzero((idx != ref_idx) & fin)):
+        row = ref_idx[b] == idx[b, j]
+        close = (abs(ref_sims[b][row] - sims[b, j]) <= MULTICHIP_TIE).any() \
+            if row.any() else abs(ref_sims[b, -1] - sims[b, j]) <= \
+            MULTICHIP_TIE
+        if not close:
+            raise AssertionError(f"{what}: query {b} slot {j} row "
+                                 f"{idx[b, j]} vs {ref_idx[b, j]}, no tie")
+        ties += 1
+    return {"max_sim_err": err, "tied_index_swaps": ties}
+
+
+def multichip_knn(mesh, kp, gen):
+    """Stage 2: the headline database split over the mesh's rows, f32
+    and bf16, and the reference test's boundary n_valid; each against
+    the single-card kernel search on rank 0, made first. The kernel
+    launches of the sharded searches alone, summed over the ranks, are
+    counted from 0. Returns (fields, launches, per-rank launches)."""
+    from cslam_tpu_torch.parallel.sharded_knn import \
+        kernel_slots_to_reference, sharded_cosine_topk
+    m, b, dev = MULTICHIP, MULTICHIP_BOUNDARY, mesh.device
+    cases = []  # (what, data, n_valid, queries, k)
+    for dtype in (torch.float32, torch.bfloat16):
+        data = torch.randn((m["n_cap"], m["dim"]), generator=gen,
+                           device=dev).to(dtype)
+        queries = torch.randn((m["batch"], m["dim"]), generator=gen,
+                              device=dev)
+        cases.append((str(dtype), data, m["n_valid"], queries, m["k"]))
+    data = torch.randn((b["n_cap"], b["dim"]), generator=gen, device=dev)
+    q = torch.randn((b["batch"], b["dim"]), generator=gen, device=dev)
+    cases += [(f"n_valid={n}", data, n, q, b["k"]) for n in b["n_valid"]]
+    refs = [kernel_slots_to_reference(
+        *kp.cosine_topk_pallas(d, n, qq, k), n) for _, d, n, qq, k in cases]
+    torch.cuda.synchronize()
+    mesh.reset_launches()
+    out, placed = {}, {}
+    for (what, data, n_valid, queries, k), ref in zip(cases, refs):
+        if id(data) not in placed:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            placed[id(data)] = mesh.place_rows(data)
+            torch.cuda.synchronize()
+            place_s = time.perf_counter() - t
+        rows = placed[id(data)]
+        got = sharded_cosine_topk(mesh, rows, n_valid, queries, k)
+        fields = compare_topk(*got, *ref, what)
+        if what.startswith("n_valid"):
+            out.setdefault("boundary", {})[what] = fields
+            continue
+
+        def search():
+            return sharded_cosine_topk(mesh, rows, n_valid, queries, k)
+
+        for _ in range(3):
+            search()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(MULTICHIP_SEARCH_ITERS):
+            search()
+        torch.cuda.synchronize()
+        fields["sharded_ms"] = (time.perf_counter() - t) * 1e3 / \
+            MULTICHIP_SEARCH_ITERS
+        fields["place_s"] = place_s
+        out[what] = fields
+    launches, per_rank = mesh.launches()
+    for rows in placed.values():
+        rows.free()
+    return out, launches, per_rank
+
+
+def multichip_descriptors(mesh):
+    """Stage 1: the shipped CosPlace, weights broadcast once,
+    MULTICHIP_IMAGES rendered keyframes at crop 224 split over the
+    ranks, against the one-process forward on rank 0 (bf16 convs as
+    shipped, and the same weights with f32 convs)."""
+    from cslam_tpu_torch.models.cosplace import CosPlace, \
+        GeoLocalizationNet, preprocess, to_device
+    dev = mesh.device
+    shipped = CosPlace({"frontend.nn_checkpoint": "shipped"},
+                       device=dev).model
+    pool = render_pool(MULTICHIP_IMAGES, SEED + 3)
+    x = to_device(preprocess(np.stack(
+        [np.broadcast_to(im[..., None], im.shape + (3,)) for im in pool]),
+        224), dev)
+    out = {"images": MULTICHIP_IMAGES, "crop": 224}
+    for dtype in (torch.bfloat16, torch.float32):
+        model = shipped if dtype == torch.bfloat16 else GeoLocalizationNet(
+            64, dtype=dtype).to(dev).eval()
+        if model is not shipped:
+            model.load_state_dict(shipped.state_dict())
+        t = time.perf_counter()
+        handle = mesh.replicate_module(model, GeoLocalizationNet, 64,
+                                       dtype=dtype)
+        replicate_s = time.perf_counter() - t
+        mesh.data_parallel(handle, x)  # warm-up (cuDNN's first calls)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = mesh.data_parallel(handle, x)
+        torch.cuda.synchronize()
+        dp_s = time.perf_counter() - t
+        mesh.free(handle)
+        with torch.no_grad():
+            model(x)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ref = model(x)
+            torch.cuda.synchronize()
+            single_s = time.perf_counter() - t
+        err = float((got - ref).abs().max())
+        cos = float((got * ref).sum(-1).min())
+        tol, min_cos = MULTICHIP_DESC_TOL[dtype]
+        if tuple(got.shape) != (MULTICHIP_IMAGES, 64) or not err <= tol or \
+                (min_cos is not None and not cos >= min_cos):
+            raise AssertionError(f"data-parallel CosPlace {dtype}: shape "
+                                 f"{tuple(got.shape)}, max abs {err}, "
+                                 f"cosine {cos}")
+        out[str(dtype)] = {"max_abs_err": err, "min_cosine": cos,
+                           "replicate_s": replicate_s,
+                           "data_parallel_s": dp_s, "single_s": single_s}
+    return out
+
+
+def swarm_pose_graph(world, closures):
+    """The slice's pose graph: every robot's odometry chain (the slice's
+    drift) and a closure measured from ground truth at each
+    (r0, k0, r1, k1)."""
+    from cslam_tpu_torch.frontend.sim import measure
+    from cslam_tpu_torch.swarm_slice import DRIFT, build_graph
+    from cslam_tpu_torch.utils.edges import EdgeInterRobot
+    odom = {r: world.noisy_odometry(r, drift=DRIFT)
+            for r in range(world.n_robots)}
+    verified = [(EdgeInterRobot(*c, 0.0), *measure(world, *c)[:2])
+                for c in closures]
+    return build_graph(odom, verified)
+
+
+def oracle_graph(n, n_loops, outlier_every, seed, meas_noise=0.02):
+    """tests/test_pgo_oracle.py's build_graph in numpy on the port: a
+    random-walk trajectory, noisy odometry as initial estimates, loop
+    closures with a gross outlier every `outlier_every`-th. Returns
+    (graph, planted outlier flags per loop)."""
+    from cslam_tpu_torch.backend.factor_graph import BetweenFactor, \
+        FactorGraph, diag_sqrt_info
+    from cslam_tpu_torch.backend.pgo_oracle import se3_exp
+    rng = np.random.default_rng(seed)
+
+    def noisy(R, t):
+        dR, dt = se3_exp(rng.standard_normal(6).astype(np.float32)
+                         * meas_noise)
+        return (R @ dR).astype(np.float32), (R @ dt + t).astype(np.float32)
+
+    Rs, ts = [np.eye(3, dtype=np.float32)], [np.zeros(3, np.float32)]
+    for _ in range(n - 1):
+        dR, dt = se3_exp(rng.standard_normal(6).astype(np.float32) * 0.15)
+        Rs.append((Rs[-1] @ dR).astype(np.float32))
+        ts.append((ts[-1] + Rs[-2] @ dt).astype(np.float32))
+    fg = FactorGraph()
+    sq = diag_sqrt_info([0.02] * 3 + [0.05] * 3)
+    Rc, tc = Rs[0], ts[0]
+    fg.add_node((0, 0), Rc, tc)
+    for k in range(n - 1):
+        Rm, tm = noisy((Rs[k].T @ Rs[k + 1]).astype(np.float32),
+                       (Rs[k].T @ (ts[k + 1] - ts[k])).astype(np.float32))
+        tc = (Rc @ tm + tc).astype(np.float32)
+        Rc = (Rc @ Rm).astype(np.float32)
+        fg.add_node((0, k + 1), Rc, tc)
+        fg.add_between(BetweenFactor((0, k), (0, k + 1), Rm, tm, sq))
+    planted = []
+    while len(planted) < n_loops:
+        i, j = sorted(rng.integers(0, n, size=2).tolist())
+        if j - i < 5:
+            continue
+        outlier = (len(planted) + 1) % outlier_every == 0
+        if outlier:
+            xi = rng.standard_normal(6).astype(np.float32)
+            xi[3:] *= 6.0
+            Rm, tm = (a.astype(np.float32) for a in se3_exp(xi))
+        else:
+            Rm, tm = noisy((Rs[i].T @ Rs[j]).astype(np.float32),
+                           (Rs[i].T @ (ts[j] - ts[i])).astype(np.float32))
+        fg.add_between(BetweenFactor((0, i), (0, j), Rm, tm, sq,
+                                     is_loop=True))
+        planted.append(outlier)
+    fg.set_prior((0, 0))
+    return fg, np.asarray(planted)
+
+
+def _graph_ate(world, fg, t):
+    from cslam_tpu_torch.swarm_slice import trajectory_ate
+    t = t.cpu().numpy()
+    est = {r: np.stack([t[fg.key_to_index[(r, k)]]
+                        for k in range(world.n_poses)])
+           for r in range(world.n_robots)}
+    return trajectory_ate(world, est)
+
+
+def check_pgo_parity(res, ref, what, t_atol=1e-3, gnc_slack=0):
+    """tests/test_parallel.py's iteration-parity tolerances (equal GNC
+    rounds and t_atol 1e-3 unless a caller states otherwise)."""
+    errs = {"initial_cost_rel": abs(float(res.initial_cost) -
+                                    float(ref.initial_cost)) /
+            abs(float(ref.initial_cost)),
+            "cost_abs": abs(float(res.cost) - float(ref.cost)),
+            "weights_max_abs": float((res.weights - ref.weights).abs().max()),
+            "t_max_abs": float((res.t - ref.t).abs().max())}
+    ok = (abs(res.gnc_iters - ref.gnc_iters) <= gnc_slack
+          and errs["initial_cost_rel"] <= 1e-5
+          and errs["cost_abs"] <= 1e-8 + 1e-3 * abs(float(ref.cost))
+          and errs["weights_max_abs"] <= 1e-2 and errs["t_max_abs"] <= t_atol)
+    if not ok:
+        raise AssertionError(f"{what}: GNC rounds {res.gnc_iters} vs "
+                             f"{ref.gnc_iters}, {errs}, t_atol {t_atol}, "
+                             f"GNC slack {gnc_slack}")
+    return dict(errs, gnc_iters=res.gnc_iters)
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic CUDA algorithms in this process (index_add_ without
+    atomics), so that a solve repeats bit for bit."""
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def _timed(solve):
+    t = time.perf_counter()
+    res = solve()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t
+
+
+def _solve_summary(world, fg, res, wall_s):
+    return {"gnc_iters": res.gnc_iters, "cost": float(res.cost),
+            "ate": _graph_ate(world, fg, res.t), "solve_s": wall_s}
+
+
+def pgo_references(world, fg, multiple):
+    """The single-card solves of the slice's 4000-pose graph that the
+    meshes are held to, on rank 0 with deterministic algorithms: at the
+    slice's PGOConfig(15, 80) and at MULTICHIP_CONVERGED, each on the
+    robot-sorted arrays and on the same factors in insertion order (a
+    witness of what the order of the sums alone does, without a mesh)."""
+    from cslam_tpu_torch.backend import pgo
+    from cslam_tpu_torch.swarm_slice import SLICE_PGO
+    g = fg.to_arrays(edge_bucket_multiple=multiple, sort_by_robot=True,
+                     device="cuda")
+    g_other = fg.to_arrays(edge_bucket_multiple=multiple,
+                           sort_by_robot=False, device="cuda")
+    if g_other.e_i.shape != g.e_i.shape:
+        raise AssertionError("the two factor orders bucket differently")
+    cfgs = {"slice": SLICE_PGO._replace(linear_solver="pcg"),
+            "converged": SLICE_PGO._replace(linear_solver="pcg",
+                                            **MULTICHIP_CONVERGED)}
+    out = {"graph": g, "cfg": cfgs, "result": {}, "report": {
+        "poses": fg.num_nodes, "factors": fg.num_factors,
+        "ate_odometry": _graph_ate(world, fg, g.t)}}
+    with deterministic():
+        for name, cfg in cfgs.items():
+            res, wall = _timed(lambda: pgo.gnc_optimize(g, cfg))
+            other, wall_other = _timed(lambda: pgo.gnc_optimize(g_other,
+                                                                cfg))
+            out["result"][name] = res
+            out["report"][name] = {
+                "single": _solve_summary(world, fg, res, wall),
+                "single_other_order": dict(
+                    _solve_summary(world, fg, other, wall_other),
+                    t_max_abs_vs_single=float((other.t - res.t).abs().max()),
+                    cost_rel_vs_single=abs(float(other.cost) -
+                                           float(res.cost)) /
+                    float(res.cost),
+                    weights_max_abs_vs_single=float(
+                        (other.weights - res.weights).abs().max()))}
+    spread = out["report"]["converged"]["single_other_order"]
+    out["t_atol"] = max(1e-3, MULTICHIP_T_SPREAD *
+                        spread["t_max_abs_vs_single"])
+    return out
+
+
+def multichip_pgo(mesh, world, fg, refs):
+    """Stage 3: the slice's robot-sorted 4000-pose graph through the
+    factor-sharded solve, against the single-card solves of
+    pgo_references (all on PCG, the sharded solve's only linear solver).
+    A one-rank mesh runs the slice's PGOConfig(15, 80) under
+    deterministic algorithms and must end bit for bit where the single
+    card does: the mesh path itself changes nothing. More ranks sum in
+    another order, which moves the slice's solve as far as the single
+    card's own other factor order does; they are held at
+    MULTICHIP_CONVERGED to tests/test_parallel.py's iteration-parity
+    tolerances and ATE within 1e-3 m of the single card's, except
+    (a) t, held to MULTICHIP_T_SPREAD times the single card's spread
+    between the two factor orders (float32 fixes this graph's converged
+    poses to mm, not 1e-3 m), and (b) the GNC round count, within one
+    of the single card's: GNC stops in the first round whose weights
+    are binary and stable after two LM steps, and which round that is
+    depends on rounding (ROADMAP queue 3)."""
+    from cslam_tpu_torch.parallel.distributed_pgo import \
+        distributed_gnc_optimize
+    g = refs["graph"]
+    shard = g.e_i.shape[0] // mesh.size
+    name = "slice" if mesh.size == 1 else "converged"
+    cfg, single = refs["cfg"][name], refs["result"][name]
+    with deterministic() if mesh.size == 1 else contextlib.nullcontext():
+        res, wall = _timed(lambda: distributed_gnc_optimize(mesh, g, cfg))
+    out = dict(_solve_summary(world, fg, res, wall), setting=name,
+               live_factors_per_shard=g.edge_mask.reshape(
+                   mesh.size, shard).sum(1).tolist(),
+               t_max_abs_vs_single=float((res.t - single.t).abs().max()),
+               closures_classified_otherwise=int(
+                   ((res.weights > 0.5) != (single.weights > 0.5)).sum()))
+    if mesh.size == 1:
+        same = (res.gnc_iters == single.gnc_iters and
+                torch.equal(res.t, single.t) and
+                torch.equal(res.R, single.R) and
+                torch.equal(res.weights, single.weights) and
+                float(res.cost) == float(single.cost))
+        if not same:
+            raise AssertionError(f"the one-rank mesh's solve is not the "
+                                 f"single card's: {out}")
+        out["bitwise_equal_to_single"] = True
+        return out
+    out["parity"] = dict(check_pgo_parity(
+        res, single, f"{fg.num_nodes}-pose converged solve",
+        t_atol=refs["t_atol"], gnc_slack=1),
+        t_atol=refs["t_atol"], gnc_iters_single=single.gnc_iters)
+    ate_single = refs["report"][name]["single"]["ate"]
+    if not abs(out["ate"] - ate_single) <= 1e-3:
+        raise AssertionError(f"{fg.num_nodes}-pose converged solve: ATE "
+                             f"{out['ate']} vs {ate_single}")
+    return out
+
+
+def multichip_oracle(mesh):
+    """The port's pgo_oracle on tests/test_pgo_oracle.py's graph at
+    MULTICHIP_ORACLE["poses"] poses with planted outliers, as that test
+    holds the solver: the single-card and the sharded solve (both PCG,
+    on the same robot-sorted arrays) each reject the planted outliers as
+    the oracle does, cost within 1%, poses within 2% of the
+    trajectory's scale; and the two solves agree to
+    tests/test_parallel.py's iteration-parity tolerances."""
+    from cslam_tpu_torch.backend import pgo, pgo_oracle
+    from cslam_tpu_torch.parallel.distributed_pgo import \
+        distributed_gnc_optimize
+    o, dev = MULTICHIP_ORACLE, mesh.device
+    fg, planted = oracle_graph(o["poses"], o["loops"], o["outlier_every"],
+                               SEED)
+    # one robot: the robot-sorted arrays keep the factors' order
+    g = fg.to_arrays(edge_bucket_multiple=mesh.size, sort_by_robot=True,
+                     device=dev)
+    og = pgo_oracle.from_graph_arrays(g)
+    t = time.perf_counter()
+    ores = pgo_oracle.gnc_optimize(og)
+    oracle_s = time.perf_counter() - t
+    loops = og.is_loop
+    if not (ores.weights[loops] < 0.5).tolist() == planted.tolist():
+        raise AssertionError("the oracle does not reject the planted "
+                             "outliers")
+    out = {"poses": fg.num_nodes, "factors": fg.num_factors,
+           "outliers": int(planted.sum()), "oracle_s": oracle_s,
+           "oracle_cost": ores.cost}
+    scale = np.linalg.norm(ores.t - ores.t.mean(0), axis=1).max()
+    nf = len(og.e_i)
+    cfg = pgo.PGOConfig(linear_solver="pcg")
+    runs = {}
+    for name, solve in (
+            ("single", lambda: pgo.gnc_optimize(g, cfg)),
+            ("distributed", lambda: distributed_gnc_optimize(mesh, g, cfg))):
+        t = time.perf_counter()
+        res = runs[name] = solve()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+        rejected = (res.weights[:nf].cpu().numpy() < 0.5)[loops]
+        cost_rel = abs(float(res.cost) - ores.cost) / ores.cost
+        err = float(np.linalg.norm(
+            res.t.cpu().numpy()[:fg.num_nodes] - ores.t, axis=1).max())
+        if rejected.tolist() != planted.tolist() or not cost_rel < 0.01 \
+                or not err < max(0.02 * scale, 0.02):
+            raise AssertionError(f"{name} solve vs the oracle: rejected "
+                                 f"{np.nonzero(rejected)[0].tolist()}, "
+                                 f"cost {cost_rel}, poses {err}")
+        out[name] = {"cost_rel_err": cost_rel, "max_pose_err": err,
+                     "gnc_iters": res.gnc_iters, "solve_s": wall_s}
+    out["parity"] = check_pgo_parity(runs["distributed"], runs["single"],
+                                     f"{fg.num_nodes}-pose solve")
+    return out
+
+
+def multichip_protocol(mesh):
+    """Stage 4: dryrun_multichip's elastic protocol, every elected
+    optimizer solving on this mesh."""
+    from cslam_tpu_torch.entry import _dryrun_protocol_on_mesh
+    t = time.perf_counter()
+    run = _dryrun_protocol_on_mesh(mesh, mesh.axis_name, mesh.size)
+    if run.optimizers[0] != 0 or run.survivor_optimizer == 0:
+        raise AssertionError(f"optimizers {run.optimizers}")
+    return {"robots": max(mesh.size, 3), "optimizers": run.optimizers,
+            "survivor_optimizer": run.survivor_optimizer,
+            "shared_estimates": run.shared_estimates,
+            "wall_s": time.perf_counter() - t}
+
+
+def run_multichip_mesh(kp, n, backend, full, world, fg, refs):
+    """One mesh of n ranks on `backend`: its stages (all four and the
+    200-pose oracle check if `full`, else the sharded search and the
+    4000-pose solve), each rank's backend and device, the kernel
+    launches of its sharded searches summed over the ranks, and the
+    children left after close()."""
+    from cslam_tpu_torch.parallel import make_swarm_mesh
+    gen = torch.Generator(device="cuda").manual_seed(SEED + n)
+    out = {"ranks": n, "backend": backend}
+    t = time.perf_counter()
+    mesh = make_swarm_mesh(n, device="cuda", backend=backend)
+    try:
+        out["startup_s"] = time.perf_counter() - t
+        out["rank_devices"] = mesh.describe()
+        stages = {}
+        t = time.perf_counter()
+        stages["knn"], out["knn_launches"], out["knn_launches_per_rank"] = \
+            multichip_knn(mesh, kp, gen)
+        stages["knn"]["wall_s"] = time.perf_counter() - t
+        if full:
+            t = time.perf_counter()
+            stages["descriptors"] = multichip_descriptors(mesh)
+            stages["descriptors"]["wall_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        stages["pgo"] = multichip_pgo(mesh, world, fg, refs)
+        stages["pgo"]["wall_s"] = time.perf_counter() - t
+        if full:
+            t = time.perf_counter()
+            stages["oracle"] = multichip_oracle(mesh)
+            stages["oracle"]["wall_s"] = time.perf_counter() - t
+            mesh.reset_launches()
+            stages["protocol"] = multichip_protocol(mesh)
+            stages["protocol"]["knn_launches"], _ = mesh.launches()
+        out["stages"] = stages
+    finally:
+        mesh.close()
+    out["children_left"] = len(multiprocessing.active_children())
+    if out["children_left"]:
+        raise AssertionError(f"{out['children_left']} children left")
+    per_rank = out["knn_launches_per_rank"]
+    if any(sum(r.values()) == 0 or 0 in r.values() for r in per_rank):
+        raise AssertionError(f"a rank did not launch both kernels: "
+                             f"{per_rank}")
+    return out
+
+
+def slice_pose_graph(res):
+    """(world, graph) of the slice phase's pose graph: the same odometry
+    and verified closures, rebuilt from its world."""
+    world = res["world"]
+    return world, swarm_pose_graph(world, [tuple(c) for c in
+                                           res["loop_closures"]])
+
+
+def multichip_phase(kp, card, res, cards_only=False):
+    """Phase 15 in two parts, each under its own watchdog and with its
+    own phase line: `multichip_reference`, the single-card solves of the
+    slice's 4000-pose graph (rank 0 alone, no mesh), then `multichip`,
+    the meshes. Returns the second part's fields."""
+    world, fg = slice_pose_graph(res)
+    count = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    faulthandler.dump_traceback_later(MULTICHIP_WATCHDOG_S, exit=True)
+    try:
+        refs = pgo_references(world, fg, MULTICHIP["ranks"] * max(count, 1))
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    phase("multichip_reference", t0, **refs["report"],
+          t_atol=refs["t_atol"])
+    t0 = time.perf_counter()
+    faulthandler.dump_traceback_later(MULTICHIP_WATCHDOG_S, exit=True)
+    try:
+        fields = run_multichip_phase(kp, card, world, fg, refs, cards_only)
+        fields["threads_left"] = live_non_daemon_threads()
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    phase("multichip", t0, **fields)
+    if fields["threads_left"]:
+        raise AssertionError(f"threads left: {fields['threads_left']}")
+    return fields
+
+
+def run_multichip_phase(kp, card, world, fg, refs, cards_only=False):
+    """Phase 15's meshes: d = 4 on cuda:0 (gloo) and d = 1 (NCCL) unless
+    `cards_only`, and d = device_count (NCCL, one card per rank) where
+    there are at least 2 cards; then the kernel's per-shard timings."""
+    count = torch.cuda.device_count()
+    meshes = [] if cards_only else [
+        run_multichip_mesh(kp, MULTICHIP["ranks"], "gloo", True, world, fg,
+                           refs),
+        run_multichip_mesh(kp, 1, "nccl", False, world, fg, refs)]
+    if count >= 2:
+        meshes.append(run_multichip_mesh(kp, count, "nccl", True, world,
+                                         fg, refs))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    m = MULTICHIP
+    shard = dict(m, n_cap=m["n_cap"] // m["ranks"],
+                 n_valid=m["n_cap"] // m["ranks"])
+    timing = {}
+    for label, shape in (("shard", shard), ("whole", m)):
+        for dtype in (torch.float32, torch.bfloat16):
+            inputs, err = check_knn_case(kp, shape["n_cap"],
+                                         shape["n_valid"], shape["dim"],
+                                         shape["batch"], shape["k"], dtype,
+                                         gen)
+            timing[f"{label}_{dtype}"] = timing_row(kp, inputs, shape,
+                                                    dtype, err, 50)
+            del inputs
+    launches = {name: sum(mm["knn_launches"][name] for mm in meshes)
+                + sum(mm["stages"].get("protocol", {}).get(
+                    "knn_launches", {}).get(name, 0) for mm in meshes)
+                for name in kp.cosine_topk_pallas.launches}
+    return {"meshes": meshes, "kernel_timing": timing,
+            "knn_launches": launches, "card": card,
+            "cards": nvidia_smi_cards(), "device_count": count}
+
+
+def main(argv=None):
+    import argparse
+    parser = argparse.ArgumentParser(description="Smoke run of the port "
+                                     "on the card(s); see the docstring.")
+    parser.add_argument("--only", choices=["multichip"], default=None,
+                        help="run the device and build phases, the slice "
+                             "(for its pose graph) and this phase alone")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -2215,6 +2842,19 @@ def main():
         raise AssertionError("the bf16 kernel has no HMMA instruction")
     if hmma_f32:
         raise AssertionError("the f32 kernel uses the tensor cores")
+    if args.only == "multichip":
+        t0 = time.perf_counter()
+        res = run_slice(4, 1000, descriptor_dim=512, seed=SEED,
+                        device="cuda", nns_method="pallas",
+                        rounds=SLICE_ROUNDS)
+        phase("slice", t0, loop_closures=len(res["loop_closures"]),
+              timings_s=res["timings"])
+        multichip_phase(kp, card, res, cards_only=count >= 2)
+        emit({"total_elapsed_s": round(time.perf_counter() - T_START, 3)})
+        print(card, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                     "count": count}})
+        return 0
 
     # 3. kernel against plain, then timings
     t0 = time.perf_counter()
@@ -2448,6 +3088,9 @@ def main():
           knn_launches=launches_launcher, card=card)
     check_launch_phase(launch)
 
+    # 15. the multi-device layer: meshes of ranks on the card(s)
+    multi = multichip_phase(kp, card, res)
+
     def entry(name, main, n_launches):
         return {"name": name, "route": "cuda", "source": KNN_SOURCE,
                 "replaces": KNN_REPLACES, "launches": n_launches,
@@ -2466,6 +3109,7 @@ def main():
         e["visual_launches"] = launches_visual[e["name"]]
         e["lidar_launches"] = launches_lidar[e["name"]]
         e["launcher_launches"] = launches_launcher[e["name"]]
+        e["multichip_launches"] = multi["knn_launches"][e["name"]]
 
     emit({"kernels": [f32, bf16]})
     emit({"total_elapsed_s": round(time.perf_counter() - T_START, 3)})

@@ -132,7 +132,10 @@ class DecentralizedPGO:
         self.received_pose_graphs: Dict[int, msgs.PoseGraph] = {}
         self.received_connectivity: Dict[int, List[int]] = {}
         self.optimization_count = 0
-        self.optimization_walls = []  # per-solve {"wall_s", "n_factors"}
+        # per-solve {"wall_s", "n_factors", "end_t", "robots"} (end_t on
+        # self.clock; robots: whose poses the graph held)
+        self.optimization_walls = []
+        self.waiting_timeouts = []  # self.clock times of expired waits
 
         self._executor = ThreadPoolExecutor(max_workers=1)
         self._optimization_future: Optional[Future] = None
@@ -420,7 +423,9 @@ class DecentralizedPGO:
             # logger.cpp:59-69; read by sim_mission.run_mission)
             self.optimization_walls.append(
                 {"wall_s": time_.perf_counter() - t_start,
-                 "n_factors": int(fg.num_factors)})
+                 "n_factors": int(fg.num_factors),
+                 "end_t": self.clock.now(),
+                 "robots": sorted({k[0] for k in fg.key_to_index})})
         except Exception:
             # A failed solve must be observable, not a silent return to
             # IDLE — mirror the reference's error logging.
@@ -637,7 +642,8 @@ class DecentralizedPGO:
         elif state == OptimizerState.OPTIMIZATION:
             self.check_result_and_finish_optimization()
         elif self._sm.is_waiting():
-            self._sm.check_timeout(self.clock.now())
+            if self._sm.check_timeout(self.clock.now()):
+                self.waiting_timeouts.append(self.clock.now())
 
     def heartbeat_timer_callback(self):
         """Heartbeat gated by rendezvous (reference :730-741)."""

@@ -30,6 +30,13 @@ import sys
 import time
 
 
+def pgo_config(args):
+    """The robots' solver settings: PGOConfig's defaults, with chordal
+    initialization of every solve under --pgo-chordal."""
+    from cslam_tpu_torch.backend.pgo import PGOConfig
+    return PGOConfig(use_chordal_init=args.pgo_chordal)
+
+
 def robot_main(robot_id: int, args):
     import numpy as np
     import torch
@@ -95,7 +102,7 @@ def robot_main(robot_id: int, args):
 
         node = SwarmNode(params, bus, clock,
                          descriptor_model=descriptor_model, logger=logger,
-                         device=device)
+                         pgo_config=pgo_config(args), device=device)
         if args.sim:
             handler = SimSensorHandler(params, bus, world)
             odom_R, odom_t = world.noisy_odometry(robot_id,
@@ -149,6 +156,7 @@ def robot_main(robot_id: int, args):
         first_lc_time = None
 
         start = time.monotonic()
+        start_clock = clock.now()
         while time.monotonic() - start < args.duration:
             now = time.monotonic()
             bus.spin_once(timeout_ms=10)
@@ -233,7 +241,13 @@ def robot_main(robot_id: int, args):
                     det.lcm.candidate_selector.candidate_edges),
                 "candidates_selected_total": det.log_total_matches_selected,
                 "verification_failures": det.log_total_failed_matches,
-                "optimization_walls": node.backend.optimization_walls,
+                # each solve's end and the waits that expired, in seconds
+                # from the loop's start
+                "optimization_walls": [
+                    dict(w, end_s=w["end_t"] - start_clock)
+                    for w in node.backend.optimization_walls],
+                "waiting_timeouts_s": [
+                    t - start_clock for t in node.backend.waiting_timeouts],
                 "slow_detection_ticks": slow_ticks,
                 "gossip_comm_bytes":
                     det.log_detection_cumulative_communication,
@@ -263,6 +277,7 @@ def robot_main(robot_id: int, args):
                 own = sorted(k for k in est if k[0] == robot_id)
                 metrics["ate_odometry_m"] = float(
                     ate_rmse(odom_t[:next_kf], gt_t[:next_kf]))
+                metrics["optimized_own_keyframes"] = len(own)
                 if len(own) > 3:
                     est_t = np.stack([est[k][1] for k in own])
                     gt_rows = np.stack([gt_t[k[1]] for k in own])
@@ -316,7 +331,7 @@ def _wire_native_types(bus):
     bus.subscribe = subscribe
 
 
-def main(argv=None):
+def argument_parser():
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--robots", type=int, default=2)
     parser.add_argument("--config", type=str, default="")
@@ -349,7 +364,15 @@ def main(argv=None):
     parser.add_argument("--resume", action="store_true",
                         help="restore state from --checkpoint-dir at "
                              "startup if a checkpoint exists")
-    args = parser.parse_args(argv)
+    parser.add_argument("--pgo-chordal", action="store_true",
+                        help="initialize every pose-graph solve by chordal "
+                             "relaxation of the factors, not from the last "
+                             "round's estimates")
+    return parser
+
+
+def main(argv=None):
+    args = argument_parser().parse_args(argv)
 
     if args.robot_id >= 0:
         return robot_main(args.robot_id, args)

@@ -7,7 +7,11 @@ place-recognition models (shipped weights) on the card against the
 same models on the CPU, and the visual slice (SuperPoint, LightGlue,
 RANSAC, PnP, stereo, the top-k tie rule, the visual mission) and the
 lidar slice (voxel grid, Scan Context, FPFH, GNC-ICP, registration at
-8192 points, the lidar mission) on the card against the CPU.
+8192 points, the lidar mission) on the card against the CPU; and the
+multi-device layer: the row-sharded search through the kernel in every
+rank and the factor-sharded solve against the single card, on meshes of
+1 (NCCL) and 2 (gloo, sharing cuda:0) ranks, and of one rank per card
+(NCCL) where there are 2 cards or more.
 
 Every test here needs a card: marked `cuda`, skipped (in a fixture, not
 at import) where there is none. On the card, without JAX installed:
@@ -620,3 +624,78 @@ def test_checkpoint_moves_between_card_and_cpu(cuda, tmp_path, src, dst):
     finally:
         node2.close()
         s.close()
+
+
+# -- the multi-device layer (chip_smoke's multichip phase, small) -----------
+
+def _mesh_knn_against_single_card(cs, mesh, gen):
+    """Sharded kernel searches (f32 and bf16, every rank with valid rows)
+    against the single-card kernel search; every rank launched its
+    kernel once per search, counted from the workers."""
+    from cslam_tpu_torch.parallel.sharded_knn import \
+        kernel_slots_to_reference, sharded_cosine_topk
+    for dtype in (torch.float32, torch.bfloat16):
+        data = torch.randn((8192, 96), generator=gen, device="cuda").to(dtype)
+        q = torch.randn((16, 96), generator=gen, device="cuda")
+        for n_valid in (8000, 3):
+            ref = kernel_slots_to_reference(
+                *kp.cosine_topk_pallas(data, n_valid, q, 10), n_valid)
+            mesh.reset_launches()
+            got = sharded_cosine_topk(mesh, data, n_valid, q, 10)
+            _, per_rank = mesh.launches()
+            rows = 8192 // mesh.size
+            want = [int(n_valid > r * rows) for r in range(mesh.size)]
+            assert [c[kp.KERNELS[dtype]] for c in per_rank] == want
+            cs.compare_topk(*got, *ref, f"{dtype} n_valid={n_valid}")
+
+
+def _mesh_solve_against_single_card(cs, mesh):
+    """tests/test_pgo_oracle.py's graph at 200 poses: the factor-sharded
+    solve against the single-card solve of the same arrays (the
+    reference parity test's tolerances)."""
+    from cslam_tpu_torch.backend import pgo
+    from cslam_tpu_torch.parallel.distributed_pgo import \
+        distributed_gnc_optimize
+    fg, _ = cs.oracle_graph(200, 24, 4, seed=0)
+    g = fg.to_arrays(edge_bucket_multiple=mesh.size, sort_by_robot=True,
+                     device="cuda")
+    cfg = pgo.PGOConfig(linear_solver="pcg")
+    res = distributed_gnc_optimize(mesh, g, cfg)
+    cs.check_pgo_parity(res, pgo.gnc_optimize(g, cfg), "200-pose solve")
+
+
+@pytest.mark.parametrize("backend,ranks", [("nccl", 1), ("gloo", 2)])
+def test_mesh_on_one_card_matches_single_card(cuda, backend, ranks):
+    """d = 1 with NCCL and d = 2 sharing cuda:0 over gloo: the sharded
+    search and the factor-sharded solve against the single card."""
+    import multiprocessing
+
+    from cslam_tpu_torch.parallel import make_swarm_mesh
+    cs = _chip_smoke()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    with make_swarm_mesh(ranks, device="cuda", backend=backend) as mesh:
+        ranks_seen = mesh.describe()
+        assert [r["device"] for r in ranks_seen] == ["cuda:0"] * ranks
+        assert {r["backend"] for r in ranks_seen} == {backend}
+        _mesh_knn_against_single_card(cs, mesh, gen)
+        _mesh_solve_against_single_card(cs, mesh)
+    assert not multiprocessing.active_children()
+
+
+def test_nccl_mesh_one_rank_per_card(cuda):
+    """d = device_count with NCCL, rank r on cuda:r; needs 2 cards."""
+    import multiprocessing
+
+    from cslam_tpu_torch.parallel import make_swarm_mesh
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip(f"one rank per card needs at least 2 cards; this host "
+                    f"has {count}")
+    cs = _chip_smoke()
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    with make_swarm_mesh(count, device="cuda", backend="nccl") as mesh:
+        assert [r["device"] for r in mesh.describe()] == \
+            [f"cuda:{r}" for r in range(count)]
+        _mesh_knn_against_single_card(cs, mesh, gen)
+        _mesh_solve_against_single_card(cs, mesh)
+    assert not multiprocessing.active_children()

@@ -8,6 +8,7 @@ Also: the port imports neither JAX nor cslam_tpu, and its entry points
 refuse to run without a card unless given device="cpu".
 """
 
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -140,6 +141,12 @@ LIDAR_MODULES = tuple(f"cslam_tpu_torch.{m}" for m in (
 # the launcher slice's modules
 LAUNCHER_MODULES = tuple(f"cslam_tpu_torch.{m}" for m in (
     "launch", "tools.solve_g2o", "utils.checkpoint", "backend.g2o"))
+# the multi-device slice's modules
+PARALLEL_MODULES = tuple(f"cslam_tpu_torch.{m}" for m in (
+    "parallel", "parallel.mesh", "parallel.sharded_knn",
+    "parallel.distributed_pgo", "entry", "backend.pgo_oracle"))
+SLICE_MODULES = (VISUAL_MODULES + LIDAR_MODULES + LAUNCHER_MODULES
+                 + PARALLEL_MODULES)
 
 
 def test_port_imports_neither_jax_nor_the_reference():
@@ -151,7 +158,7 @@ def test_port_imports_neither_jax_nor_the_reference():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         f"missing = [m for m in "
-        f"{VISUAL_MODULES + LIDAR_MODULES + LAUNCHER_MODULES!r}\n"
+        f"{SLICE_MODULES!r}\n"
         "           if m not in sys.modules]\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m == 'jax' or\n"
@@ -169,7 +176,7 @@ def test_port_imports_neither_jax_nor_the_reference():
 def test_entry_points_refuse_without_a_card(monkeypatch, tmp_path):
     """No card and no device="cpu": every entry point raises instead of
     running on the CPU (the launcher's robot without `--device cpu`,
-    solve_g2o without `--cpu`)."""
+    solve_g2o without `--cpu`, a mesh before it spawns a rank)."""
     from cslam_tpu_torch.backend import pgo
     from cslam_tpu_torch.backend.factor_graph import FactorGraph as TFG
     from cslam_tpu_torch.matching.descriptor_db import DescriptorDatabase
@@ -196,6 +203,8 @@ def test_entry_points_refuse_without_a_card(monkeypatch, tmp_path):
         diag_sqrt_info as t_sqrt_info
     from cslam_tpu_torch.backend.g2o import write_g2o
     from cslam_tpu_torch.tools import solve_g2o
+    from cslam_tpu_torch import entry
+    from cslam_tpu_torch.parallel import make_swarm_mesh
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     fg = TFG()
@@ -224,9 +233,15 @@ def test_entry_points_refuse_without_a_card(monkeypatch, tmp_path):
                  lambda: launch.main(["--robot-id", "0", "--robots", "1",
                                       "--sim", "--duration", "0",
                                       "--base-port", "20600"]),
-                 lambda: solve_g2o.main([str(tmp_path / "none.g2o")])):
+                 lambda: solve_g2o.main([str(tmp_path / "none.g2o")]),
+                 lambda: make_swarm_mesh(2),
+                 lambda: make_swarm_mesh(2, backend="gloo"),
+                 lambda: entry.dryrun_multichip(2),
+                 lambda: entry.main(["2"]),
+                 lambda: entry.entry()):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
+    assert not multiprocessing.active_children()
     # with the explicit CPU device they run
     DescriptorDatabase(device="cpu").add_item(np.ones(4), 0)
     pgo.optimize(fg, device="cpu")
