@@ -8,7 +8,9 @@ shipped `.npz` files hold them, and their inverses for the port's own
 models: `cosplace_state_dict`, `netvlad_state_dict`,
 `superpoint_state_dict` and `lightglue_state_dict` carry the shipped
 weights into `models/cosplace.py`, `models/netvlad.py`,
-`models/superpoint.py` and `models/lightglue.py`.
+`models/superpoint.py` and `models/lightglue.py`; `convert_netvlad`
+maps a whole NetVLADNet back. The port's trainers save through these
+maps (models/training.py), so either package loads what they write.
 
 Layout mapping: torch conv weights (O, I, H, W) <-> flat (H, W, I, O);
 Dense kernels are transposed; BatchNorm running statistics live under
@@ -161,6 +163,20 @@ def convert_netvlad_layer(state: Dict, prefix: str = "pool.") -> Dict:
         state[f"{prefix}centroids"])
     out["params/NetVLADLayer_0/assign_conv/kernel"] = _conv(
         state[f"{prefix}conv.weight"])
+    return out
+
+
+def convert_netvlad(state: Dict) -> Dict[str, np.ndarray]:
+    """NetVLADNet state_dict (torchvision VGG16 `features` indices under
+    `encoder.`, the NetVLAD layer under `pool.`) -> the flat variables of
+    models.netvlad.NetVLADNet, as netvlad_synth.npz holds them: the
+    inverse of `netvlad_state_dict`."""
+    out: Dict[str, np.ndarray] = {}
+    for i, idx in enumerate(VGG16_CONV_INDICES):
+        fp = f"params/VGG16Conv5_0/Conv_{i}"
+        out[f"{fp}/kernel"] = _conv(state[f"encoder.{idx}.weight"])
+        out[f"{fp}/bias"] = np.asarray(state[f"encoder.{idx}.bias"])
+    out.update(convert_netvlad_layer(state))
     return out
 
 

@@ -35,6 +35,13 @@ IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
 
 
+def at_least_f32(x):
+    """x in f32, or in f64 when it is f64: the reference's casts to f32
+    promote bf16 and keep wider types (a float64 copy of a network, as
+    chip_smoke's gradient check builds, stays float64)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 class Conv(nn.Conv2d):
     """`nn.Conv2d` that computes in `dtype` like Flax's
     `nn.Conv(dtype=...)` with f32 params: input, kernel and bias are
@@ -59,23 +66,44 @@ class Conv(nn.Conv2d):
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm in f32 with Flax's formula and epsilon:
-    (x - mean) * (scale * rsqrt(var + 1e-5)) + bias over the channel
-    axis (dim 1). Keys as torch's BatchNorm2d (weight, bias,
-    running_mean, running_var)."""
+    """BatchNorm over the channel axis (dim 1) in f32 with Flax's formula
+    and epsilon: (x - mean) * (scale * rsqrt(var + 1e-5)) + bias. Keys as
+    torch's BatchNorm2d (weight, bias, running_mean, running_var).
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    In eval mode mean and var are the running statistics. In train mode
+    they are the batch's, as Flax's `nn.BatchNorm(use_running_average=
+    False)` computes them: in f32, var = max(E[x^2] - E[x]^2, 0) (biased),
+    and the running statistics move as `ra = momentum * ra + (1 -
+    momentum) * batch` with Flax's momentum convention (0.9 keeps 90% of
+    the old value; torch's BatchNorm2d keeps the unbiased variance with
+    momentum 0.1 instead). Gradients flow through the batch statistics."""
+
+    def __init__(self, channels: int, eps: float = 1e-5,
+                 momentum: float = 0.9):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x):
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return ((x.float() - self.running_mean[:, None, None])
-                * mul[:, None, None] + self.bias[:, None, None])
+        x = at_least_f32(x)
+        if self.training:
+            mean = torch.mean(x, dim=(0, 2, 3))
+            mean2 = torch.mean(x * x, dim=(0, 2, 3))
+            var = torch.clamp(mean2 - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(
+                    m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean[:, None, None]) * mul[:, None, None]
+                + self.bias[:, None, None])
 
 
 class GeM(nn.Module):
@@ -88,7 +116,7 @@ class GeM(nn.Module):
         self.p = nn.Parameter(torch.ones(1) * 3.0)
 
     def forward(self, x):
-        x = torch.clamp(x.float(), min=self.eps) ** self.p
+        x = torch.clamp(at_least_f32(x), min=self.eps) ** self.p
         x = torch.mean(x, dim=(2, 3))
         return x ** (1.0 / self.p)
 
@@ -170,7 +198,7 @@ class GeoLocalizationNet(nn.Module):
         if image.is_cuda:
             require_full_fp32(image.device)
         x = self.backbone(image.permute(0, 3, 1, 2))
-        return self.aggregation(x.float())
+        return self.aggregation(at_least_f32(x))
 
 
 def flax_init_(model: nn.Module, seed: int = 0) -> nn.Module:

@@ -137,7 +137,7 @@ class MatchAssignment(nn.Module):
         self.matchability = nn.Linear(dim, 1)
         self.final_proj = nn.Linear(dim, dim)
 
-    def forward(self, x0, x1, m0, m1):
+    def forward(self, x0, x1, m0, m1, with_aux=False):
         scale = self.dim ** 0.25
         mdesc0 = self.final_proj(x0) / scale
         mdesc1 = self.final_proj(x1) / scale
@@ -150,7 +150,12 @@ class MatchAssignment(nn.Module):
             F.logsigmoid(z1)[..., None, :]
         scores = torch.log_softmax(sim, dim=-1) + \
             torch.log_softmax(sim, dim=-2) + certainties
-        return torch.where(valid, scores, torch.full_like(scores, -torch.inf))
+        scores = torch.where(valid, scores,
+                             torch.full_like(scores, -torch.inf))
+        if with_aux:
+            # the raw matchability logits, for the training loss
+            return scores, z0, z1
+        return scores
 
 
 class Posenc(nn.Module):
@@ -168,7 +173,8 @@ class LightGlueNet(nn.Module):
     """Official-topology LightGlue (input_dim == dim: no input_proj, as
     in the superpoint_lightglue checkpoint). forward(desc0 (..., K0, D),
     xy0 (..., K0, 2) normalized, m0 (..., K0), desc1, xy1, m1) -> log
-    assignment scores (..., K0, K1)."""
+    assignment scores (..., K0, K1); with_aux=True also returns the
+    matchability logits z0 (..., K0) and z1 (..., K1)."""
 
     def __init__(self, dim: int = 256, num_layers: int = 9,
                  num_heads: int = 4, input_dim: int = 256):
@@ -183,7 +189,7 @@ class LightGlueNet(nn.Module):
         self.log_assignment = nn.ModuleDict(
             {str(num_layers - 1): MatchAssignment(dim)})
 
-    def forward(self, desc0, xy0, m0, desc1, xy1, m1):
+    def forward(self, desc0, xy0, m0, desc1, xy1, m1, with_aux=False):
         if desc0.is_cuda:
             require_full_fp32(desc0.device)
         if hasattr(self, "input_proj"):
@@ -195,7 +201,8 @@ class LightGlueNet(nn.Module):
             x0 = layer.self_attn(x0, cos0, sin0, m0)
             x1 = layer.self_attn(x1, cos1, sin1, m1)
             x0, x1 = layer.cross_attn(x0, x1, m0, m1)
-        return self.log_assignment[str(self.num_layers - 1)](x0, x1, m0, m1)
+        return self.log_assignment[str(self.num_layers - 1)](
+            x0, x1, m0, m1, with_aux=with_aux)
 
 
 def official_state(state: dict, num_layers: int) -> dict:

@@ -23,8 +23,8 @@ from torch import nn
 from cslam_tpu_torch.device import DeviceLike, require_full_fp32, \
     resolve_device
 from cslam_tpu_torch.models import convert, zoo
-from cslam_tpu_torch.models.cosplace import Conv, embed, flax_init_, \
-    l2_normalize, load_flat_weights, preprocess, to_device
+from cslam_tpu_torch.models.cosplace import Conv, at_least_f32, embed, \
+    flax_init_, l2_normalize, load_flat_weights, preprocess, to_device
 from cslam_tpu_torch.runtime.tracing import span
 
 VGG16_CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
@@ -68,7 +68,7 @@ class NetVLADLayer(nn.Module):
 
     def forward(self, x):
         B, C, H, W = x.shape
-        x = x.float()
+        x = at_least_f32(x)
         if self.normalize_input:
             x = l2_normalize(x, dim=1)
         logits = F.conv2d(x, self.conv.weight)  # (B, K, H, W)

@@ -1,44 +1,53 @@
-"""Evaluation helpers of the LightGlue matcher's self-training.
+"""Self-training of the LightGlue matcher on synthetic correspondence
+problems.
 
-Port of the evaluation half of cslam_tpu/models/train_lightglue.py:
-`make_match_batch` (numpy; the synthetic matching problems the shipped
-lightglue_synth.npz was trained on, with the same RNG draws in the same
-order, so one seed gives both packages the same batch) and
-`eval_matching` (precision/recall of LightGlue's mutual-argmax matches
-against raw-descriptor mutual matching). The homography helpers are the
-port's copies of the two that `make_match_batch` calls from the
-reference's models/synthetic_shapes.py. Training itself is not ported.
+Port of cslam_tpu/models/train_lightglue.py:
+
+- `make_match_batch` (numpy; the synthetic matching problems the shipped
+  lightglue_synth.npz was trained on, with the same RNG draws in the
+  same order, so one seed gives both packages the same batch): two views
+  share n_inlier true points, each view sees a noisy copy of the point's
+  unit descriptor plus independent outliers, view-1 keypoints are
+  view-0's through a random homography;
+- `build_real_match_pool` / `sample_pool_batch`: real-patch homography
+  pairs featurized by a SuperPoint (the deployed descriptor
+  distribution);
+- `build_train_step`: the official LightGlue loss, the NLL of the
+  ground-truth assignment under the sigmoid-log-double-softmax scores
+  plus matchability BCE on unmatched points, averaged over the pairs of
+  a batch (the reference's vmap over pairs is the model's batch
+  dimension here); Adam under optax's cosine-decay schedule
+  (models/training.py), f32 at full precision;
+- `eval_matching`: precision/recall of mutual-argmax matches against
+  raw-descriptor mutual matching.
+
+Run (on the card; `--cpu` for the CPU):
+
+    python -m cslam_tpu_torch.models.train_lightglue \
+        --steps 1200 --batch 16 --layers 3
+
+The output (default `cslam_tpu_torch/_build/weights/
+lightglue_synth.npz`) loads in either package with LightGlue(checkpoint=
+<path>, num_layers=3).
 """
+
+import argparse
+import sys
+import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from cslam_tpu_torch.models.lightglue import normalize_keypoints
-
-
-def random_homography(rng, H, W, max_angle=0.6, max_scale=0.25,
-                      max_translate=0.15, max_persp=0.0008):
-    """Random similarity + perspective homography mapping (x, y, 1)."""
-    a = rng.uniform(-max_angle, max_angle)
-    s = np.exp(rng.uniform(-max_scale, max_scale))
-    tx = rng.uniform(-max_translate, max_translate) * W
-    ty = rng.uniform(-max_translate, max_translate) * H
-    cx, cy = W / 2.0, H / 2.0
-    ca, sa = np.cos(a), np.sin(a)
-    A = np.array([[s * ca, -s * sa, cx - s * (ca * cx - sa * cy) + tx],
-                  [s * sa, s * ca, cy - s * (sa * cx + ca * cy) + ty],
-                  [0, 0, 1]], dtype=np.float64)
-    P = np.eye(3)
-    P[2, 0] = rng.uniform(-max_persp, max_persp)
-    P[2, 1] = rng.uniform(-max_persp, max_persp)
-    return (A @ P).astype(np.float32)
-
-
-def apply_homography(Hm, xy):
-    """(N, 2) points through a 3x3 homography."""
-    xy1 = np.concatenate([xy, np.ones((len(xy), 1), np.float32)], axis=1)
-    w = xy1 @ Hm.T
-    return w[:, :2] / np.maximum(w[:, 2:3], 1e-8)
+from cslam_tpu_torch.device import resolve_device
+from cslam_tpu_torch.models import convert
+from cslam_tpu_torch.models.cosplace import flax_init_, load_flat_weights
+from cslam_tpu_torch.models.lightglue import LightGlueNet, \
+    normalize_keypoints
+from cslam_tpu_torch.models.synthetic_shapes import apply_homography, \
+    random_homography, warp_image
+from cslam_tpu_torch.models.training import CosineAdam, StepTimer, \
+    batch_to, default_out, flat_variables, parameters_on, save_flat
 
 
 def make_match_batch(rng, batch, K=96, D=256, H=120, W=160,
@@ -135,3 +144,206 @@ def eval_matching(model, rng, n_pairs=32, K=96, sigma=0.6, H=120, W=160,
         out[name] = {"precision": s["tp"] / max(n_sel, 1),
                      "recall": s["tp"] / max(stats["pos"], 1)}
     return out
+
+
+def build_real_match_pool(superpoint, rng, n_pairs=256, K=96, H=120,
+                          W=160, match_px=3.0):
+    """Real-patch homography matching problems: crops of the offline real
+    photographs and their homography warps, featurized by `superpoint`
+    (the port's SuperPoint wrapper, on its device). Ground-truth matches
+    are mutual nearest under the homography within match_px.
+
+    Returns a tuple of stacked arrays in make_match_batch's layout, to
+    be sampled as training batches."""
+    from cslam_tpu_torch.models.homographic_adaptation import \
+        default_source_images
+    images = [im for im in default_source_images()
+              if im.shape[0] >= H + 8 and im.shape[1] >= W + 8]
+    out = {k: [] for k in ("d0", "p0", "m0", "d1", "p1", "m1", "gt",
+                           "mt0", "mt1")}
+    while len(out["d0"]) < n_pairs:
+        img = images[int(rng.integers(len(images)))]
+        y0 = int(rng.integers(0, img.shape[0] - H + 1))
+        x0 = int(rng.integers(0, img.shape[1] - W + 1))
+        crop = np.ascontiguousarray(img[y0:y0 + H, x0:x0 + W])
+        crop = np.clip(crop * rng.uniform(0.85, 1.15) +
+                       rng.uniform(-0.06, 0.06), 0, 1).astype(np.float32)
+        Hm = random_homography(rng, H, W)
+        warped, _ = warp_image(crop, Hm)
+        warped = np.clip(warped * rng.uniform(0.8, 1.2) +
+                         rng.uniform(-0.08, 0.08) +
+                         0.02 * rng.standard_normal((H, W)),
+                         0, 1).astype(np.float32)
+        xy0, d0, _, m0 = (a.cpu().numpy() for a in
+                          superpoint.extract_features(crop,
+                                                      max_keypoints=K))
+        xy1, d1, _, m1 = (a.cpu().numpy() for a in
+                          superpoint.extract_features(warped,
+                                                      max_keypoints=K))
+        if m0.sum() < K // 4 or m1.sum() < K // 4:
+            continue
+        w0 = apply_homography(Hm, xy0)
+        dist = np.linalg.norm(w0[:, None] - xy1[None], axis=-1)
+        dist = np.where((m0[:, None] > 0) & (m1[None] > 0), dist, np.inf)
+        nn1 = dist.argmin(1)
+        nn0 = dist.argmin(0)
+        gt = np.full(K, -1, np.int32)
+        for i in range(K):
+            j = nn1[i]
+            if dist[i, j] < match_px and nn0[j] == i:
+                gt[i] = j
+        if (gt >= 0).sum() < 8:
+            continue
+        mt0 = (gt >= 0).astype(np.float32)
+        mt1 = np.zeros(K, np.float32)
+        mt1[gt[gt >= 0]] = 1.0
+        for k, v in zip(("d0", "p0", "m0", "d1", "p1", "m1", "gt",
+                         "mt0", "mt1"),
+                        (d0, xy0, m0, d1, xy1, m1, gt, mt0, mt1)):
+            out[k].append(v)
+    return tuple(np.stack(out[k]) for k in
+                 ("d0", "p0", "m0", "d1", "p1", "m1", "gt", "mt0",
+                  "mt1"))
+
+
+def sample_pool_batch(pool, rng, batch):
+    idx = rng.integers(0, len(pool[0]), size=batch)
+    return tuple(arr[idx] for arr in pool)
+
+
+def pair_losses(model, d0, p0, m0, d1, p1, m1, gt, mt0, mt1, size):
+    """(B,) loss of each pair: the NLL of its ground-truth matches plus
+    half the matchability BCE of its unmatched points."""
+    scores, z0, z1 = model(d0, normalize_keypoints(p0, size), m0,
+                           d1, normalize_keypoints(p1, size), m1,
+                           with_aux=True)
+    gt_safe = torch.clamp(gt, min=0)
+    ll = torch.gather(scores, -1, gt_safe[..., None])[..., 0]
+    n_pos = torch.clamp(torch.sum(mt0, dim=-1), min=1.0)
+    loss_pos = -torch.sum(ll * mt0, dim=-1) / n_pos
+    # matchability BCE on unmatched points: want sigmoid(z) -> 0
+    un0 = (1.0 - mt0) * m0
+    un1 = (1.0 - mt1) * m1
+    loss_un = -(torch.sum(F.logsigmoid(-z0) * un0, dim=-1) +
+                torch.sum(F.logsigmoid(-z1) * un1, dim=-1)) / \
+        torch.clamp(torch.sum(un0, dim=-1) + torch.sum(un1, dim=-1),
+                    min=1.0)
+    return loss_pos + 0.5 * loss_un
+
+
+def build_train_step(model, lr, steps, H=120, W=160):
+    """(optimizer, train_step): train_step(batch) takes make_match_batch's
+    host arrays, takes one Adam step of `model`'s parameters on their
+    device and returns the batch's mean loss as a tensor. The gradients
+    of the step stay in the parameters' .grad."""
+    opt = CosineAdam(model.parameters(), lr, steps, alpha=0.1)
+    device = parameters_on(model)
+    size = torch.tensor([W, H], dtype=torch.float32, device=device)
+
+    def train_step(batch):
+        opt.zero_grad()
+        loss = torch.mean(pair_losses(model, *batch_to(batch, device),
+                                      size))
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return opt, train_step
+
+
+def save_params(model, path):
+    """The model's weights in the reference's flat layout at `path`."""
+    save_flat(flat_variables(model, "lightglue", model.num_layers), path)
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--steps", type=int, default=1200)
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--keypoints", type=int, default=96)
+    ap.add_argument("--layers", type=int, default=3)
+    ap.add_argument("--lr", type=float, default=2e-4)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cpu", action="store_true",
+                    help="train on the CPU instead of the card")
+    ap.add_argument("--init-from", default="",
+                    help="warm-start from an existing .npz checkpoint")
+    ap.add_argument("--noise-lo", type=float, default=0.4)
+    ap.add_argument("--noise-hi", type=float, default=0.95)
+    ap.add_argument("--real-mix", type=float, default=0.0,
+                    help="fraction of batches drawn from the real-patch "
+                         "SuperPoint pair pool")
+    ap.add_argument("--real-pairs", type=int, default=256,
+                    help="pool size of precomputed real pairs")
+    ap.add_argument("--superpoint", default="",
+                    help="SuperPoint checkpoint used to featurize the "
+                         "real pairs (default: shipped)")
+    ap.add_argument("--out", default=default_out("lightglue_synth.npz"))
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    train(parse_args(argv))
+    return 0
+
+
+def train(args, log=print):
+    """main's training run; returns (model, per-step losses, device ms
+    per step, host batch ms per step)."""
+    device = resolve_device("cpu" if args.cpu else None)
+    model = LightGlueNet(num_layers=args.layers)
+    rng = np.random.default_rng(args.seed)
+    K = args.keypoints
+    flax_init_(model, args.seed)
+    if args.init_from:
+        load_flat_weights(model, convert.lightglue_state_dict(
+            convert.load_flat(args.init_from), args.layers))
+        log("warm-started from", args.init_from, flush=True)
+    model.to(device).train()
+    pool = None
+    if args.real_mix > 0:
+        from cslam_tpu_torch.models import zoo
+        from cslam_tpu_torch.models.superpoint import SuperPoint
+        sp_ckpt = args.superpoint or \
+            zoo.shipped_checkpoint("superpoint_synth.npz")
+        sp = SuperPoint(checkpoint=sp_ckpt, max_keypoints=K, device=device)
+        log(f"building {args.real_pairs} real SuperPoint pairs from "
+            f"{sp_ckpt}...", flush=True)
+        pool = build_real_match_pool(sp, rng, n_pairs=args.real_pairs,
+                                     K=K)
+        log(f"pool ready: mean matches/pair "
+            f"{float(pool[7].sum(1).mean()):.1f}", flush=True)
+    _, train_step = build_train_step(model, args.lr, args.steps)
+    losses, step_ms, batch_ms = [], [], []
+    t0 = time.time()
+    for step in range(args.steps):
+        tb = time.perf_counter()
+        if pool is not None and rng.random() < args.real_mix:
+            batch = sample_pool_batch(pool, rng, args.batch)
+        else:
+            batch = make_match_batch(rng, args.batch, K=K,
+                                     noise_lo=args.noise_lo,
+                                     noise_hi=args.noise_hi)
+        batch_ms.append((time.perf_counter() - tb) * 1e3)
+        with StepTimer(device, step_ms):
+            loss = train_step(batch)
+        losses.append(float(loss))
+        if step % 50 == 0 or step == args.steps - 1:
+            log(f"step {step} loss {float(loss):.4f} "
+                f"({time.time() - t0:.0f}s)", flush=True)
+        if step % 300 == 299 or step == args.steps - 1:
+            for sig in (0.6, 0.85):
+                ev = eval_matching(model, np.random.default_rng(1234),
+                                   K=K, sigma=sig)
+                log(f"  eval@sigma={sig}: "
+                    f"lg P={ev['lightglue']['precision']:.3f} "
+                    f"R={ev['lightglue']['recall']:.3f} | raw "
+                    f"P={ev['raw']['precision']:.3f} "
+                    f"R={ev['raw']['recall']:.3f}", flush=True)
+    save_params(model, args.out)
+    log("saved", args.out, flush=True)
+    return model, losses, step_ms, batch_ms
+
+
+if __name__ == "__main__":
+    sys.exit(main())

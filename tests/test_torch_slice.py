@@ -145,8 +145,14 @@ LAUNCHER_MODULES = tuple(f"cslam_tpu_torch.{m}" for m in (
 PARALLEL_MODULES = tuple(f"cslam_tpu_torch.{m}" for m in (
     "parallel", "parallel.mesh", "parallel.sharded_knn",
     "parallel.distributed_pgo", "entry", "backend.pgo_oracle"))
+# the tooling and training slice's modules
+TOOLING_MODULES = tuple(f"cslam_tpu_torch.{m}" for m in (
+    "utils.datasets", "utils.visualization", "utils.image_sequence",
+    "models.synthetic_shapes", "models.homographic_adaptation",
+    "models.training", "models.train_superpoint", "models.train_lightglue",
+    "models.train_cosplace", "models.train_netvlad", "tools.kitti_eval"))
 SLICE_MODULES = (VISUAL_MODULES + LIDAR_MODULES + LAUNCHER_MODULES
-                 + PARALLEL_MODULES)
+                 + PARALLEL_MODULES + TOOLING_MODULES)
 
 
 def test_port_imports_neither_jax_nor_the_reference():
@@ -199,6 +205,9 @@ def test_entry_points_refuse_without_a_card(monkeypatch, tmp_path):
     from cslam_tpu_torch.matching.scancontext_matching import \
         ScanContextMatching
     from cslam_tpu_torch import launch
+    from cslam_tpu_torch.models import train_cosplace, train_lightglue, \
+        train_netvlad, train_superpoint
+    from cslam_tpu_torch.tools import kitti_eval
     from cslam_tpu_torch.backend.factor_graph import BetweenFactor as TBF, \
         diag_sqrt_info as t_sqrt_info
     from cslam_tpu_torch.backend.g2o import write_g2o
@@ -238,7 +247,14 @@ def test_entry_points_refuse_without_a_card(monkeypatch, tmp_path):
                  lambda: make_swarm_mesh(2, backend="gloo"),
                  lambda: entry.dryrun_multichip(2),
                  lambda: entry.main(["2"]),
-                 lambda: entry.entry()):
+                 lambda: entry.entry(),
+                 lambda: train_superpoint.main(["--steps", "1"]),
+                 lambda: train_lightglue.main(["--steps", "1"]),
+                 lambda: train_cosplace.main(["--steps", "1"]),
+                 lambda: train_netvlad.main(["--steps", "1"]),
+                 lambda: kitti_eval.run_eval(
+                     np.tile(np.eye(3, dtype=np.float32), (4, 1, 1)),
+                     np.zeros((4, 3), np.float32), 2)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     assert not multiprocessing.active_children()
