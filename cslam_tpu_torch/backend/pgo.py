@@ -16,6 +16,15 @@ condition is read on the host, with the reference's conditions and caps
 unchanged (CG checked every `cg_unroll` steps, LM accept/stop, GNC
 binariness + stability), so iteration counts match. Padded nodes and
 edges contribute zero through masks.
+
+Instrumented (`runtime/tracing.py`): `optimize`'s host span `pgo_arrays`
+around the graph's build and upload, and `gnc_optimize`'s counter `pgo`
+with each solve's LM steps, CG iterations, GNC rounds and whether the
+PCG path ran (the loops' own host counts: no extra host read). The
+counter sits in `gnc_optimize` because that is the one-card solve entry
+both `optimize` and `gnc_optimize_batch` go through; the sharded solve
+(parallel/distributed_pgo.py) calls `gnc_optimize_core` and records no
+counts.
 """
 
 from typing import NamedTuple
@@ -30,6 +39,7 @@ from cslam_tpu_torch.ops.batched_linalg import batched_inv_small
 from cslam_tpu_torch.ops.block_tridiag import (bcr_factor, bcr_solve,
                                                chain_offdiag_from_edges,
                                                cholesky_or_nan)
+from cslam_tpu_torch.runtime.tracing import span, tracer
 
 
 class EdgeReduce(NamedTuple):
@@ -327,6 +337,14 @@ def _retract(R, t, dx, node_mask):
 # ----------------------------------------------------------------------
 # Levenberg-Marquardt with GNC weights
 # ----------------------------------------------------------------------
+def _uses_dense(g: GraphArrays, cfg: PGOConfig, red=None) -> bool:
+    """Whether LM solves its normal equations by dense Cholesky (else
+    PCG)."""
+    return red is None and (cfg.linear_solver == "dense" or (
+        cfg.linear_solver == "auto"
+        and 6 * g.R.shape[0] <= cfg.dense_threshold))
+
+
 def _lm_optimize(g: GraphArrays, R, t, weights, cfg: PGOConfig,
                  max_iters=None, lam0=None, cg_iters=None, red=None,
                  count_iters=False):
@@ -335,9 +353,7 @@ def _lm_optimize(g: GraphArrays, R, t, weights, cfg: PGOConfig,
     also returns (lm_steps_taken, cg_iterations_total)."""
     max_iters = cfg.lm_max_iters if max_iters is None else max_iters
     sw = torch.sqrt(torch.clamp(weights * g.edge_mask, min=0.0))
-    use_dense = red is None and (cfg.linear_solver == "dense" or (
-        cfg.linear_solver == "auto"
-        and 6 * g.R.shape[0] <= cfg.dense_threshold))
+    use_dense = _uses_dense(g, cfg, red)
 
     def eval_point(R, t):
         r, Ji, Jj = edge_residuals_jacobians(g, R, t)
@@ -491,8 +507,16 @@ def gnc_optimize_core(g: GraphArrays, cfg: PGOConfig, red=None,
 
 
 def gnc_optimize(g: GraphArrays, cfg: PGOConfig = PGOConfig()) -> PGOResult:
-    """Full GNC-TLS robust PGO from the graph's stored initial estimates."""
-    return gnc_optimize_core(g, cfg)
+    """Full GNC-TLS robust PGO from the graph's stored initial estimates;
+    adds the solve's LM steps, CG iterations, GNC rounds and whether PCG
+    ran to the counter `pgo`."""
+    result, stats = gnc_optimize_core(g, cfg, count_iters=True)
+    phases = ("init", "gnc", "polish")
+    tracer.counter("pgo", lm_steps=sum(stats["lm_" + p] for p in phases),
+                   cg_iters=sum(stats["cg_" + p] for p in phases),
+                   gnc_rounds=stats["gnc_rounds"],
+                   pcg=int(not _uses_dense(g, cfg)))
+    return result
 
 
 def gnc_optimize_batch(gs, cfg: PGOConfig = PGOConfig()):
@@ -521,7 +545,8 @@ def optimize(fg: FactorGraph, cfg: PGOConfig = PGOConfig(),
     """Host entry: arrays on `device` (None = the CUDA card), the solve,
     write-back of estimates. Chordal initialization runs first, on its
     own, as in the reference."""
-    g = fg.to_arrays(device=device)
+    with span("pgo_arrays", n_factors=fg.num_factors):
+        g = fg.to_arrays(device=device)
     if cfg.use_chordal_init:
         from cslam_tpu_torch.backend.initialization import chordal_initialize
         R0, t0 = chordal_initialize(g)

@@ -37,7 +37,7 @@ from cslam_tpu_torch.comm.neighbors_manager import NeighborManager
 from cslam_tpu_torch.device import DeviceLike
 from cslam_tpu_torch.matching.sparse_matching import \
     LoopClosureSparseMatching
-from cslam_tpu_torch.runtime.tracing import span
+from cslam_tpu_torch.runtime.tracing import span, tracer
 from cslam_tpu_torch.sparsification.broker import Broker
 from cslam_tpu_torch.utils.edges import EdgeInterRobot
 from cslam_tpu_torch.utils.misc import dict_to_list_chunks
@@ -322,16 +322,19 @@ class GlobalDescriptorLoopClosureDetection:
         if not msg.descriptors or \
                 msg.descriptors[0].robot_id == self.params["robot_id"]:
             return
-        unknown = self.neighbor_manager.get_unknown_range(msg.descriptors)
-        t0 = time.monotonic()
-        for i in unknown:
-            match = self.lcm.add_other_robot_global_descriptor(
-                msg.descriptors[i])
-            if match is not None:
-                self.inter_robot_matches_buffer[
-                    self.nb_inter_robot_matches] = match
-                self.nb_inter_robot_matches += 1
-        self.tick_phase_ms["knn_ingest"] += (time.monotonic() - t0) * 1e3
+        with tracer.timed("gossip_ingest",
+                          sender=int(msg.descriptors[0].robot_id)) as ingest:
+            unknown = self.neighbor_manager.get_unknown_range(
+                msg.descriptors)
+            ingest.args["n"] = len(unknown)
+            for i in unknown:
+                match = self.lcm.add_other_robot_global_descriptor(
+                    msg.descriptors[i])
+                if match is not None:
+                    self.inter_robot_matches_buffer[
+                        self.nb_inter_robot_matches] = match
+                    self.nb_inter_robot_matches += 1
+        self.tick_phase_ms["knn_ingest"] += ingest.seconds * 1e3
 
     def inter_robot_matches_callback(self, msg: msgs.InterRobotMatches):
         """Matches detected by other robots (reference :406-416)."""

@@ -4,7 +4,9 @@ Port of cslam_tpu/matching/descriptor_db.py: add_item / search /
 search_best / batch_search with the same return semantics (items sorted
 by descending cosine similarity; min(k, n) results), a fixed-capacity
 device buffer whose capacity doubles, and row norms kept in f32 from the
-values as stored.
+values as stored. Host spans (`runtime/tracing.span`): `knn_add` per
+add, `knn_search` per search from the query's upload to the host copy
+of its results.
 """
 
 from typing import Any, Dict, List, Tuple
@@ -14,6 +16,7 @@ import torch
 
 from cslam_tpu_torch.device import DeviceLike, resolve_device
 from cslam_tpu_torch.ops import knn
+from cslam_tpu_torch.runtime.tracing import span
 
 _INITIAL_CAPACITY = 1024
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -88,30 +91,35 @@ class DescriptorDatabase:
 
     def add_item(self, vector, item):
         """Add a descriptor with its identification info (e.g. keyframe id)."""
-        vector = np.asarray(vector, dtype=np.float32).reshape(-1)
-        if self._data is None:
-            self._alloc(vector.shape[0])
-        if vector.shape[0] != self.dim:
-            raise ValueError(
-                f"descriptor dim {vector.shape[0]} != database dim {self.dim}")
-        if self.n >= self._capacity:
-            self._capacity *= 2
-            self._data = knn.grow(self._data, self._capacity)
-            self._norms = torch.cat(
-                [self._norms, torch.zeros((self._capacity // 2,),
-                                          dtype=torch.float32,
-                                          device=self.device)])
-        row = torch.from_numpy(vector).to(self._dtype)
-        # norm of the values as stored (bf16-rounded when applicable)
-        norm = float(np.linalg.norm(row.float().numpy()))
-        knn.set_row(self._data, self.n, row)
-        self._norms[self.n] = norm
-        self.items[self.n] = item
-        self.n += 1
+        with span("knn_add", rows=self.n):
+            vector = np.asarray(vector, dtype=np.float32).reshape(-1)
+            if self._data is None:
+                self._alloc(vector.shape[0])
+            if vector.shape[0] != self.dim:
+                raise ValueError(f"descriptor dim {vector.shape[0]} != "
+                                 f"database dim {self.dim}")
+            if self.n >= self._capacity:
+                self._capacity *= 2
+                self._data = knn.grow(self._data, self._capacity)
+                self._norms = torch.cat(
+                    [self._norms, torch.zeros((self._capacity // 2,),
+                                              dtype=torch.float32,
+                                              device=self.device)])
+            row = torch.from_numpy(vector).to(self._dtype)
+            # norm of the values as stored (bf16-rounded when applicable)
+            norm = float(np.linalg.norm(row.float().numpy()))
+            knn.set_row(self._data, self.n, row)
+            self._norms[self.n] = norm
+            self.items[self.n] = item
+            self.n += 1
 
-    def _query_tensor(self, queries):
+    def _search(self, queries, k: int):
+        """Host (B, min(k, n)) indices and sims of a non-empty database."""
         q = np.asarray(queries, dtype=np.float32).reshape(-1, self.dim)
-        return torch.from_numpy(q).to(self.device)
+        with span("knn_search", rows=self.n, batch=q.shape[0], k=k):
+            return _to_host(*self._topk(torch.from_numpy(q).to(self.device),
+                                        min(k, self._capacity)),
+                            min(k, self.n))
 
     def search(self, query, k: int) -> Tuple[List[Any], np.ndarray]:
         """k nearest items by cosine similarity, descending.
@@ -120,9 +128,7 @@ class DescriptorDatabase:
         length min(k, n)."""
         if self.n == 0:
             return [], np.array([])
-        idx, sims = _to_host(*self._topk(self._query_tensor(query),
-                                         min(k, self._capacity)),
-                             min(k, self.n))
+        idx, sims = self._search(query, k)
         return [self.items[int(i)] for i in idx[0]], sims[0]
 
     def search_best(self, query):
@@ -136,8 +142,6 @@ class DescriptorDatabase:
         """Batched search: (B, dim) queries -> (B, k') items and sims."""
         if self.n == 0:
             return [], np.zeros((0, 0))
-        idx, sims = _to_host(*self._topk(self._query_tensor(queries),
-                                         min(k, self._capacity)),
-                             min(k, self.n))
+        idx, sims = self._search(queries, k)
         items = [[self.items[int(i)] for i in row] for row in idx]
         return items, sims

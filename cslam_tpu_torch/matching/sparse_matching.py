@@ -15,6 +15,7 @@ from cslam_tpu_torch.device import DeviceLike, resolve_device
 from cslam_tpu_torch.matching.descriptor_db import DescriptorDatabase
 from cslam_tpu_torch.matching.scancontext_matching import \
     ScanContextMatching
+from cslam_tpu_torch.runtime.tracing import span
 from cslam_tpu_torch.sparsification.acm import \
     AlgebraicConnectivityMaximization
 from cslam_tpu_torch.utils.edges import EdgeInterRobot
@@ -50,21 +51,24 @@ class LoopClosureSparseMatching:
 
     def add_local_global_descriptor(self, embedding, keyframe_id):
         """Store a local keyframe descriptor and match it against every
-        other robot's database."""
-        matches = []
-        embedding = np.asarray(embedding, dtype=np.float32)
-        self.local_nnsm.add_item(embedding, keyframe_id)
-        for i in range(self.params["max_nb_robots"]):
-            if i == self.params["robot_id"]:
-                continue
-            kf, similarity = self.other_robots_nnsm[i].search_best(embedding)
-            if kf is not None and \
-                    similarity >= self.params["frontend.similarity_threshold"]:
-                match = EdgeInterRobot(self.params["robot_id"], keyframe_id,
-                                       i, kf, float(similarity))
-                self.candidate_selector.add_match(match)
-                matches.append(match)
-        return matches
+        other robot's database (host span `match_local`)."""
+        me = self.params["robot_id"]
+        with span("match_local", robot=me):
+            matches = []
+            embedding = np.asarray(embedding, dtype=np.float32)
+            self.local_nnsm.add_item(embedding, keyframe_id)
+            for i in range(self.params["max_nb_robots"]):
+                if i == me:
+                    continue
+                kf, similarity = \
+                    self.other_robots_nnsm[i].search_best(embedding)
+                if kf is not None and similarity >= \
+                        self.params["frontend.similarity_threshold"]:
+                    match = EdgeInterRobot(me, keyframe_id, i, kf,
+                                           float(similarity))
+                    self.candidate_selector.add_match(match)
+                    matches.append(match)
+            return matches
 
     def add_other_robot_global_descriptor(self, msg):
         """Store another robot's descriptor and match it against the local

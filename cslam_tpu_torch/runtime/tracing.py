@@ -5,13 +5,23 @@ stage can be wrapped in a `span`, and the result loaded straight into
 chrome://tracing / Perfetto beside a `torch.profiler` device trace.
 
 Design constraints:
-- Disabled tracer costs one attribute check per span (no clock reads,
-  no allocation) — safe to leave instrumented in production code.
+- A span on a thread that records nothing returns one shared no-op
+  context manager: no clock read, no allocation beyond the call's
+  keyword dict, a thread-local depth count — safe to leave instrumented
+  in production code.
 - Spans nest arbitrarily; each thread is its own Chrome-trace `tid`
   row, each process (robot) its own `pid` row, so multi-robot missions
   overlay cleanly.
+- Whether a thread records is decided once, when its outermost span
+  opens: spans, instants and counters inside it are recorded if and
+  only if that span is, whatever `enable`/`disable` do meanwhile. A
+  stage that straddles the moment tracing starts or stops (a solve on
+  the back-end's worker thread) is then recorded whole or not at all,
+  so its counters always go with its span. Outside any span the
+  tracer's current state decides.
 - Bounded memory: a deque ring of `capacity` events; a saturated
-  mission drops the OLDEST events and counts the drops (`n_dropped`).
+  mission drops the OLDEST events and counts each dropped event once
+  (`n_dropped`).
 - CUDA kernels launched inside a span run asynchronously: a span covers
   the host-side launches unless the stage itself synchronizes with the
   card (the solver stages do: they copy their results to the host, and
@@ -29,9 +39,75 @@ import os
 import threading
 import time
 from collections import deque
-from contextlib import contextmanager
 
 __all__ = ["Tracer", "tracer", "span"]
+
+
+class _ThreadState(threading.local):
+    depth = 0    # spans open on this thread
+    on = False   # whether the outermost of them records
+
+
+class _Off:
+    """The span of a thread that records nothing: shared, no clock."""
+
+    __slots__ = ("_state",)
+
+    def __init__(self, state):
+        self._state = state
+
+    def __enter__(self):
+        self._state.depth += 1
+        return self
+
+    def __exit__(self, *exc):
+        self._state.depth -= 1
+        return False
+
+
+class _Span:
+    """A span that reads the clock; recorded at exit if its thread
+    records (decided at entry). `t_begin`, `t_end` and `seconds` are
+    perf_counter readings; `args` may be added to before exit."""
+
+    __slots__ = ("_tracer", "name", "args", "on", "t_begin", "t_end")
+
+    def __init__(self, tr, name, args):
+        self._tracer = tr
+        self.name = name
+        self.args = args
+
+    def __enter__(self):
+        st = self._tracer._state
+        if not st.depth:
+            st.on = self._tracer.enabled
+        self.on = st.on
+        st.depth += 1
+        self.t_begin = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.t_end = time.perf_counter()
+        st = self._tracer._state
+        st.depth -= 1
+        if not st.depth:
+            st.on = False
+        if self.on:
+            tr = self._tracer
+            # Complete ("X") events: one record per span keeps the
+            # ring twice as deep as B/E pairs would.
+            tr._append({
+                "name": self.name, "ph": "X", "pid": tr._pid,
+                "tid": threading.get_ident(),
+                "ts": (self.t_begin - tr._t0) * 1e6,
+                "dur": (self.t_end - self.t_begin) * 1e6,
+                "args": self.args,
+            })
+        return False
+
+    @property
+    def seconds(self) -> float:
+        return self.t_end - self.t_begin
 
 
 class Tracer:
@@ -46,6 +122,9 @@ class Tracer:
         self._pid_label = None
         self.n_dropped = 0
         self._t0 = time.perf_counter()
+        self._state = _ThreadState()
+        self._off = _Off(self._state)
+        self._exit_hooked = False
 
     # -- control ------------------------------------------------------
     def enable(self, path, pid_label: str = None):
@@ -57,7 +136,9 @@ class Tracer:
         self._path = path
         self._pid_label = pid_label
         self.enabled = True
-        atexit.register(self._dump_at_exit)
+        if not self._exit_hooked:
+            atexit.register(self._dump_at_exit)
+            self._exit_hooked = True
 
     def disable(self):
         self.enabled = False
@@ -68,51 +149,49 @@ class Tracer:
             self.n_dropped = 0
 
     # -- recording ----------------------------------------------------
-    @contextmanager
+    def _records(self) -> bool:
+        st = self._state
+        return st.on if st.depth else self.enabled
+
+    def _append(self, event):
+        with self._lock:
+            if len(self._events) == self._events.maxlen:
+                self.n_dropped += 1
+            self._events.append(event)
+
     def span(self, name: str, **args):
-        if not self.enabled:
-            yield
-            return
-        tid = threading.get_ident()
-        t_begin = time.perf_counter()
-        try:
-            yield
-        finally:
-            t_end = time.perf_counter()
-            with self._lock:
-                if len(self._events) == self._events.maxlen:
-                    self.n_dropped += 2
-                # Complete ("X") events: one record per span keeps the
-                # ring twice as deep as B/E pairs would.
-                self._events.append({
-                    "name": name, "ph": "X", "pid": self._pid, "tid": tid,
-                    "ts": (t_begin - self._t0) * 1e6,
-                    "dur": (t_end - t_begin) * 1e6,
-                    "args": args,
-                })
+        """Context manager timing a stage (a Complete event)."""
+        if not self._records():
+            return self._off
+        return _Span(self, name, args)
+
+    def timed(self, name: str, **args) -> _Span:
+        """A span that reads the clock whether or not it is recorded,
+        for a stage that keeps its own time too: `.seconds` after exit,
+        the same readings as the recorded event's."""
+        return _Span(self, name, args)
 
     def instant(self, name: str, **args):
         """Zero-duration marker (message arrivals, state transitions)."""
-        if not self.enabled:
+        if not self._records():
             return
-        with self._lock:
-            self._events.append({
-                "name": name, "ph": "i", "s": "t", "pid": self._pid,
-                "tid": threading.get_ident(),
-                "ts": (time.perf_counter() - self._t0) * 1e6,
-                "args": args,
-            })
+        self._append({
+            "name": name, "ph": "i", "s": "t", "pid": self._pid,
+            "tid": threading.get_ident(),
+            "ts": (time.perf_counter() - self._t0) * 1e6,
+            "args": args,
+        })
 
     def counter(self, name: str, **values):
-        """Chrome-trace counter track (queue depths, comm bytes)."""
-        if not self.enabled:
+        """Chrome-trace counter track (queue depths, comm bytes, the
+        iterations a stage took)."""
+        if not self._records():
             return
-        with self._lock:
-            self._events.append({
-                "name": name, "ph": "C", "pid": self._pid,
-                "ts": (time.perf_counter() - self._t0) * 1e6,
-                "args": values,
-            })
+        self._append({
+            "name": name, "ph": "C", "pid": self._pid,
+            "ts": (time.perf_counter() - self._t0) * 1e6,
+            "args": values,
+        })
 
     def totals(self) -> dict:
         """{span name: {"count": n, "seconds": host seconds}} over the
@@ -124,6 +203,18 @@ class Tracer:
             t = out.setdefault(e["name"], {"count": 0, "seconds": 0.0})
             t["count"] += 1
             t["seconds"] += e["dur"] / 1e6
+        return out
+
+    def counter_totals(self) -> dict:
+        """{counter name: {key: summed value}} over the recorded counter
+        events (dropped ones are not counted)."""
+        with self._lock:
+            events = [e for e in self._events if e["ph"] == "C"]
+        out = {}
+        for e in events:
+            t = out.setdefault(e["name"], {})
+            for k, v in e["args"].items():
+                t[k] = t.get(k, 0) + v
         return out
 
     # -- output -------------------------------------------------------

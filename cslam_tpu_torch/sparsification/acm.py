@@ -36,6 +36,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from cslam_tpu_torch.device import DeviceLike, resolve_device
+from cslam_tpu_torch.runtime.tracing import span
 from cslam_tpu_torch.sparsification.mac import MAC, DisconnectedGraphError
 from cslam_tpu_torch.utils.edges import (Edge, EdgeInterRobot, edge_key,
                                          replace_weight)
@@ -310,10 +311,11 @@ class AlgebraicConnectivityMaximization:
     # ------------------------------------------------------------------
     def run_mac_solver(self, fixed_edges: Sequence[Edge],
                        candidate_edges: Sequence[Edge], w_init,
-                       nb_candidates_to_choose: int) -> np.ndarray:
-        """MAC with the disconnection-retry loop (:435-465)."""
-        mac = MAC(fixed_edges, candidate_edges, self.total_nb_poses,
-                  device=self.device)
+                       nb_candidates_to_choose: int, *,
+                       mac: MAC) -> np.ndarray:
+        """MAC with the disconnection-retry loop (:435-465); `mac` is
+        MAC(...) built on these edges, inside `select_candidates`' span
+        `mac_prepare`."""
         result = np.asarray(w_init).copy()
         trial = 0
         while trial < nb_candidates_to_choose:
@@ -333,55 +335,64 @@ class AlgebraicConnectivityMaximization:
                           is_other_robot_considered: Dict[int, bool],
                           greedy_initialization: bool = True
                           ) -> List[EdgeInterRobot]:
-        """Budgeted selection of candidate edges (:467-542)."""
-        is_robot_included = self.check_graph_disconnections(
-            is_other_robot_considered)
+        """Budgeted selection of candidate edges (:467-542). The host span
+        `mac_prepare` runs from the start until the MAC solve, MAC(...)
+        built."""
+        with span("mac_prepare", robot=self.robot_id):
+            is_robot_included = self.check_graph_disconnections(
+                is_other_robot_considered)
 
-        self.compute_offsets(is_robot_included)
-        rekeyed_fixed_edges = self.rekey_edges(self.fixed_edges,
-                                               is_robot_included)
-        rekeyed_fixed_edges.extend(self.fill_odometry())
-        # Selection-side similarity floor (config
-        # frontend.candidate_selection_min_weight): below-floor
-        # candidates are unverifiable with high probability (measured,
-        # SCALING.md §5) — keep them in the pool but out of this
-        # round's budget. The floor PRIORITIZES, it must not starve:
-        # when above-floor candidates alone cannot fill the budget
-        # (small worlds / early mission), backfill with the
-        # highest-weight below-floor candidates so selection never
-        # returns empty while candidates exist.
-        floor = float(self.params.get(
-            "frontend.candidate_selection_min_weight", 0.0))
-        all_candidates = list(self.candidate_edges.values())
-        candidate_pool = [e for e in all_candidates if e.weight >= floor]
-        if len(candidate_pool) < nb_candidates_to_choose:
-            below = sorted((e for e in all_candidates if e.weight < floor),
-                           key=lambda e: e.weight, reverse=True)
-            candidate_pool.extend(
-                below[:nb_candidates_to_choose - len(candidate_pool)])
-        rekeyed_candidate_edges = self.rekey_edges(
-            candidate_pool, is_robot_included)
+            self.compute_offsets(is_robot_included)
+            rekeyed_fixed_edges = self.rekey_edges(self.fixed_edges,
+                                                   is_robot_included)
+            rekeyed_fixed_edges.extend(self.fill_odometry())
+            # Selection-side similarity floor (config
+            # frontend.candidate_selection_min_weight): below-floor
+            # candidates are unverifiable with high probability (measured,
+            # SCALING.md §5) — keep them in the pool but out of this
+            # round's budget. The floor PRIORITIZES, it must not starve:
+            # when above-floor candidates alone cannot fill the budget
+            # (small worlds / early mission), backfill with the
+            # highest-weight below-floor candidates so selection never
+            # returns empty while candidates exist.
+            floor = float(self.params.get(
+                "frontend.candidate_selection_min_weight", 0.0))
+            all_candidates = list(self.candidate_edges.values())
+            candidate_pool = [e for e in all_candidates if e.weight >= floor]
+            if len(candidate_pool) < nb_candidates_to_choose:
+                below = sorted((e for e in all_candidates if e.weight < floor),
+                               key=lambda e: e.weight, reverse=True)
+                candidate_pool.extend(
+                    below[:nb_candidates_to_choose - len(candidate_pool)])
+            rekeyed_candidate_edges = self.rekey_edges(
+                candidate_pool, is_robot_included)
 
-        nb_candidates_to_choose = min(nb_candidates_to_choose,
-                                      len(rekeyed_candidate_edges))
-        if not rekeyed_candidate_edges:
-            return []
+            nb_candidates_to_choose = min(nb_candidates_to_choose,
+                                          len(rekeyed_candidate_edges))
+            if not rekeyed_candidate_edges:
+                return []
 
-        self.total_nb_poses = sum(
-            self.nb_poses[n] for n in range(len(self.nb_poses)))
+            self.total_nb_poses = sum(
+                self.nb_poses[n] for n in range(len(self.nb_poses)))
 
-        if greedy_initialization:
-            w_init = self.greedy_initialization(nb_candidates_to_choose,
-                                                rekeyed_candidate_edges)
-        else:
-            w_init = self.random_initialization(nb_candidates_to_choose,
-                                                rekeyed_candidate_edges)
+            if greedy_initialization:
+                w_init = self.greedy_initialization(nb_candidates_to_choose,
+                                                    rekeyed_candidate_edges)
+            else:
+                w_init = self.random_initialization(nb_candidates_to_choose,
+                                                    rekeyed_candidate_edges)
 
-        if self.params.get("frontend.enable_sparsification", True) and \
-                self.check_initial_fixed_measurements_exists(is_robot_included):
+            use_mac = self.params.get("frontend.enable_sparsification",
+                                      True) and \
+                self.check_initial_fixed_measurements_exists(
+                    is_robot_included)
+            if use_mac:
+                mac = MAC(rekeyed_fixed_edges, rekeyed_candidate_edges,
+                          self.total_nb_poses, device=self.device)
+        if use_mac:
             result = self.run_mac_solver(rekeyed_fixed_edges,
                                          rekeyed_candidate_edges, w_init,
-                                         nb_candidates_to_choose)
+                                         nb_candidates_to_choose, mac=mac)
         else:
             result = self.connection_biased_greedy_selection(
                 nb_candidates_to_choose,

@@ -19,6 +19,9 @@ port reproduces (utils/jax_random.py), so iteration counts match.
 The reference evaluates the refinement's SWAP_K^2 swapped selections
 with one vmapped program; here they run as one batch of the same
 solvers (a member's gated loops stop independently).
+
+Each `MAC.fw_subset` call is the host span `mac_fw` and adds its
+Frank-Wolfe iterations to the counter `mac` (`fw_iters`).
 """
 
 from typing import List, NamedTuple, Sequence
@@ -32,6 +35,7 @@ from cslam_tpu_torch.ops.knn import topk_desc
 from cslam_tpu_torch.ops.laplacian import (incidence_matrix, laplacian_dense,
                                            laplacian_from_incidence)
 from cslam_tpu_torch.ops.lobpcg import lobpcg_standard
+from cslam_tpu_torch.runtime.tracing import span, tracer
 from cslam_tpu_torch.utils import jax_random
 from cslam_tpu_torch.utils.edges import Edge
 
@@ -156,7 +160,7 @@ def _fw_subset(L_fixed, e_i, e_j, weights, valid, node_mask, w_init,
                fiedler_method="eigh", lobpcg_iters=16, lobpcg_block=4,
                refine_rounds=0, swap_k=4):
     """Frank-Wolfe subset selection. Returns (w_rounded, w_unrounded,
-    upper_bound) as tensors."""
+    upper_bound) as tensors and the Frank-Wolfe iterations run."""
     dev = weights.device
     ninf = torch.tensor(float("-inf"), device=dev)
     ei, ej = e_i.to(torch.int64), e_j.to(torch.int64)
@@ -286,7 +290,7 @@ def _fw_subset(L_fixed, e_i, e_j, weights, valid, node_mask, w_init,
             best = int(torch.argmax(lam2s))
             if bool(lam2s[best] > lam2_cur * 1.01):
                 w_rounded = sels[best]
-    return w_rounded, w, u
+    return w_rounded, w, u, it
 
 
 class MAC:
@@ -413,20 +417,24 @@ class MAC:
             if (self.fiedler_method == "matfree"
                     and self._P > _LOBPCG_NODE_THRESHOLD):
                 max_iters = min(max_iters, self.fw_matfree_iters)
-        # FW support only grows, so connectivity at the initial iterate
-        # implies connectivity at every iterate
-        self._check_connected(w_init)
-        w_rounded, w, u = _fw_subset(
-            self.L_fixed, self._e_i_d, self._e_j_d,
-            self._weights_d, self._valid_d,
-            self.node_mask, self._pad_w(w_init), float(duality_gap_tol),
-            self._fixed_i, self._fixed_j, self._fixed_w,
-            k=k, max_iters=max_iters, num_nodes=self._P,
-            fiedler_method=self.fiedler_method,
-            lobpcg_iters=self.lobpcg_iters, lobpcg_block=self.lobpcg_block,
-            refine_rounds=self.refine_rounds, swap_k=self.swap_k)
-        return MACResult(w_rounded.cpu().numpy()[:self.m],
-                         w.cpu().numpy()[:self.m], float(u))
+        with span("mac_fw", m=self.m, k=k, nodes=self.num_poses):
+            # FW support only grows, so connectivity at the initial
+            # iterate implies connectivity at every iterate
+            self._check_connected(w_init)
+            w_rounded, w, u, iters = _fw_subset(
+                self.L_fixed, self._e_i_d, self._e_j_d,
+                self._weights_d, self._valid_d,
+                self.node_mask, self._pad_w(w_init), float(duality_gap_tol),
+                self._fixed_i, self._fixed_j, self._fixed_w,
+                k=k, max_iters=max_iters, num_nodes=self._P,
+                fiedler_method=self.fiedler_method,
+                lobpcg_iters=self.lobpcg_iters,
+                lobpcg_block=self.lobpcg_block,
+                refine_rounds=self.refine_rounds, swap_k=self.swap_k)
+            result = MACResult(w_rounded.cpu().numpy()[:self.m],
+                               w.cpu().numpy()[:self.m], float(u))
+            tracer.counter("mac", fw_iters=iters)
+        return result
 
 
 def select_measurements(measurements: Sequence, w) -> List:

@@ -437,8 +437,8 @@ def _record_mac_calls(monkeypatch, acm_module):
     cls = acm_module.AlgebraicConnectivityMaximization
     orig = cls.run_mac_solver
 
-    def run(self, fixed, cand, w_init, k):
-        out = orig(self, fixed, cand, w_init, k)
+    def run(self, fixed, cand, w_init, k, **kw):
+        out = orig(self, fixed, cand, w_init, k, **kw)
         calls.append({"fixed": list(fixed), "cand": list(cand),
                       "w_init": np.array(w_init, np.float32), "k": k,
                       "n": self.total_nb_poses,
