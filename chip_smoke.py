@@ -15,7 +15,10 @@ Phases, each printing one JSON line with its own elapsed_s:
      pass, ragged batch, depth and n_valid on the tensor-core path,
      duplicate rows, back-to-back searches on one stream), then
      CUDA-event timings of the search, the plain version and a library
-     call, and the search's host wall time per call;
+     call, and the search's host wall time per call; then the
+     small-dense kernel (MAC's LOBPCG eigh, QR and SVD) at LOBPCG's
+     shapes against its plain float64 version, and its CUDA-event times
+     against the plain version's and torch.linalg's in float32;
   4. slice: the device path at map scale — 4 robots x 1000 keyframes,
      512-d descriptors: kNN ingestion through the f32 kernel, 2 rounds
      of MAC selection (matrix-free Fiedler path, P = 4096), GNC-LM PGO;
@@ -30,12 +33,13 @@ Phases, each printing one JSON line with its own elapsed_s:
      protocol (cslam_tpu_torch.sim_mission: SwarmNode, bus, gossip,
      broker election, brokerage, simulated verification, decentralized
      PGO on a worker thread) at 4 robots x 500 keyframes, 512-d
-     descriptors: per-stage wall seconds, the f32 kernel's launches over
-     this phase alone, the protocol's counts, ATE per robot, the host
-     time of one to_arrays of the aggregated graph. It runs under a
-     watchdog that dumps every thread's stack and exits non-zero if the
-     phase stalls, waits on each solve with a timeout, and fails if a
-     non-daemon thread outlives it;
+     descriptors: per-stage wall seconds, the f32 kernel's launches and
+     the small-dense kernel's executions (a CUDA graph's replays
+     included) over this phase alone, the protocol's counts, ATE per
+     robot, the host time of one to_arrays of the aggregated graph. It
+     runs under a watchdog that dumps every thread's stack and exits
+     non-zero if the phase stalls, waits on each solve with a timeout,
+     and fails if a non-daemon thread outlives it;
   8. descriptor: keyframe images through the global-descriptor path —
      GlobalDescriptorComponent built from params on the in-process bus
      (shipped CosPlace, ResNet-18 at full widths, crop 224, batches of
@@ -206,7 +210,9 @@ MAIN_SHAPE = dict(n_cap=1024, n_valid=1000, dim=512, batch=1, k=1)
 SLICE_ROUNDS = 2
 TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-4}
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# float64: the CUDA cores' FMA rate (the small-dense kernel's arithmetic)
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12,
+              torch.float64: 34e12}
 KNN_REPLACES = "cslam_tpu/ops/knn_pallas.py:77"
 KNN_SOURCE = "cslam_tpu_torch/csrc/cosine_topk.cu"
 # exact path vs kernel on bf16 storage: the reference's own bound
@@ -596,6 +602,91 @@ def timing_row(kp, inputs, shape, dtype, err, iters):
             "bound_by": bound_by}
 
 
+# the small-dense kernel at LOBPCG's shapes (block k = 4): the
+# Rayleigh-Ritz eigh (12 x 12, 3k), SVQB's eigh (4 x 4), the P update's
+# QR (8 x 4) and the basis extension's SVD (4 x 4); batches of one, as
+# LOBPCG launches them, and of 64; the minimal float64 operations of each
+# factorization with its vectors (Golub and Van Loan: 9n^3 symmetric
+# eigh, 4mn^2 - 4n^3/3 QR with Q, 21n^3 SVD with U and V)
+SMALL_DENSE_SHAPES = {"eigh_12": ("eigh", 12, 12), "eigh_4": ("eigh", 4, 4),
+                      "qr_8x4": ("qr", 8, 4), "svd_4": ("svd", 4, 4)}
+SMALL_DENSE_TOL = 1e-6
+
+
+def small_dense_flops(op, m, n):
+    return {"eigh": 9 * n ** 3, "qr": 4 * m * n * n - 4 * n ** 3 / 3,
+            "svd": 21 * n ** 3}[op]
+
+
+def small_dense_inputs(op, m, n, batch, gen):
+    A = torch.randn((batch, m, n), generator=gen, device="cuda")
+    return (A + A.mT) / 2 if op == "eigh" else A
+
+
+def check_small_dense(sd, gen):
+    """Each small-dense kernel on card tensors at LOBPCG's shapes against
+    its plain float64 version: eigenvalues and singular values, and the
+    products V diag(w) V^T, Q R and U diag(S) V^T against the matrix, each
+    within SMALL_DENSE_TOL of the matrix's largest entry. Returns the
+    worst of those errors; raises above the tolerance."""
+    worst = 0.0
+    for name, (op, m, n) in SMALL_DENSE_SHAPES.items():
+        for batch in (1, 64):
+            A = small_dense_inputs(op, m, n, batch, gen)
+            A64 = A.double()
+            scale = float(A.abs().max())
+            errs = {}
+            if op == "eigh":
+                w, V = sd.eigh(A)
+                errs["values"] = w.double() - sd.eigh_plain(A64)[0]
+                V = V.double()
+                errs["product"] = V @ torch.diag_embed(w.double()) @ V.mT \
+                    - A64
+            elif op == "qr":
+                Q, R = sd.qr(A)
+                errs["product"] = Q.double() @ R.double() - A64
+            else:
+                U, S, Vh = sd.svd(A)
+                errs["values"] = S.double() - sd.svd_plain(A64)[1]
+                errs["product"] = (U.double() @ torch.diag_embed(S.double())
+                                   @ Vh.double() - A64)
+            for what, e in errs.items():
+                err = float(e.abs().max()) / scale
+                worst = max(worst, err)
+                if not err <= SMALL_DENSE_TOL:
+                    raise AssertionError(
+                        f"small-dense {name} batch {batch}: {what} off "
+                        f"by {err:.3g} of the largest entry")
+    return worst
+
+
+def time_small_dense(sd, gen):
+    """Per LOBPCG shape (batch of one): device ms a call of the kernel's
+    wrapper, of its plain float64 version and of torch.linalg in float32
+    (which reads cuSOLVER's status back to the host), CUDA events over
+    back-to-back calls; and the bound, the larger of the bytes over HBM
+    bandwidth and the float64 operations over the card's FMA peak."""
+    rows = {}
+    for name, (op, m, n) in SMALL_DENSE_SHAPES.items():
+        A = small_dense_inputs(op, m, n, 1, gen)[0]
+        kernel, plain, library = {
+            "eigh": (sd.eigh, sd.eigh_plain, torch.linalg.eigh),
+            "qr": (sd.qr, sd.qr_plain, torch.linalg.qr),
+            "svd": (sd.svd, sd.svd_plain, torch.linalg.svd)}[op]
+        out_words = {"eigh": n * n + n, "qr": m * n + n * n,
+                     "svd": 2 * n * n + n}[op]
+        t_bytes = (m * n + out_words) * 4 / HBM_BYTES_PER_S * 1e3
+        t_ops = small_dense_flops(op, m, n) / PEAK_FLOPS[torch.float64] \
+            * 1e3
+        rows[name] = {
+            "ms": cuda_ms(lambda: kernel(A), 200),
+            "plain_ms": cuda_ms(lambda: plain(A), 50),
+            "library_ms": cuda_ms(lambda: library(A), 50),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    return rows
+
+
 def reset_launches(kp):
     for name in kp.cosine_topk_pallas.launches:
         kp.cosine_topk_pallas.launches[name] = 0
@@ -629,6 +720,9 @@ def check_mission(res):
         if not opt < odo:
             raise AssertionError(f"robot {rid}: optimized ATE {opt} is not "
                                  f"below odometry ATE {odo}")
+    if sum(res["small_dense_launches"].values()) <= 0:
+        raise AssertionError("the mission's MAC never ran the small-dense "
+                             "kernel")
     if res["threads_left"]:
         raise AssertionError(f"non-daemon threads outlived the mission: "
                              f"{res['threads_left']}")
@@ -3820,10 +3914,15 @@ def main(argv=None):
     kp.cosine_topk_pallas(data, 2000, data[:4], 5)
     if sum(kp.cosine_topk_pallas.launches.values()) != before + 1:
         raise AssertionError("cosine_topk_pallas did not launch the kernel")
+    # the small-dense kernel (MAC's warm-LOBPCG) at LOBPCG's shapes
+    from cslam_tpu_torch.ops import small_dense as sd
+    small_err = check_small_dense(sd, gen)
+    small_timing = time_small_dense(sd, gen)
     torch.cuda.empty_cache()
     phase("kernel", t0, cases=len(cases) + 8 + len(DESC_SHAPES),
           max_abs_err=worst,
-          timing=timing, card=card)
+          timing=timing, small_dense_max_err=small_err,
+          small_dense_timing=small_timing, card=card)
 
     # 4. the slice at map scale (f32 storage: the f32 kernel)
     t0 = time.perf_counter()
@@ -3901,8 +4000,12 @@ def main(argv=None):
     faulthandler.dump_traceback_later(MISSION_WATCHDOG_S, exit=True)
     try:
         reset_launches(kp)
+        sd_before = dict(sd.LAUNCHES)
         mission = run_mission(**MISSION, seed=SEED, device="cuda")
         mission["knn_launches"] = dict(kp.cosine_topk_pallas.launches)
+        # executions: launches outside captures and the replayed ones
+        mission["small_dense_launches"] = {
+            name: n - sd_before[name] for name, n in sd.LAUNCHES.items()}
         mission["threads_left"] = live_non_daemon_threads()
     finally:
         faulthandler.cancel_dump_traceback_later()
@@ -4034,7 +4137,18 @@ def main(argv=None):
         e["kitti_eval_launches"] = launches_eval[e["name"]]
         e["multichip_launches"] = multi["knn_launches"][e["name"]]
 
-    emit({"kernels": [f32, bf16]})
+    eigh12 = small_timing["eigh_12"]
+    small = {"name": "small_dense", "route": "cuda",
+             "source": "cslam_tpu_torch/csrc/small_dense.cu",
+             "replaces": None,
+             "launches": sum(mission["small_dense_launches"].values()),
+             "mission_launches": mission["small_dense_launches"],
+             "max_abs_err": small_err, "ms": eigh12["ms"],
+             "plain_ms": eigh12["plain_ms"], "bound_ms": eigh12["bound_ms"],
+             "bound_by": eigh12["bound_by"],
+             "library_ms": eigh12["library_ms"], "shape": "eigh 12 x 12",
+             "shapes": small_timing, "checked": True}
+    emit({"kernels": [f32, bf16, small]})
     emit({"total_elapsed_s": round(time.perf_counter() - T_START, 3)})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -34,6 +34,9 @@ SIGNATURES = {
     "cosine_topk_launch": ([_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P],
                            _I),
+    "small_eigh_launch": ([_P, _I, _I, _P, _P, _P], _I),
+    "small_qr_launch": ([_P, _I, _I, _I, _P, _P, _P], _I),
+    "small_svd_launch": ([_P, _I, _I, _P, _P, _P, _P], _I),
 }
 
 _lib = None

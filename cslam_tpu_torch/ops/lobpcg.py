@@ -9,16 +9,25 @@ orthonormalization (twice), "twice is enough" projection with the
 basis, the QR-orthogonalized P update, the block-Householder basis
 extension, and the self-consistency convergence test
 |r| < eps * 10 * n * (|A x| + theta). Every product runs in full fp32
-(the reference uses HIGHEST precision).
+(the reference uses HIGHEST precision). The small eigensolves, the QR
+and the SVD go through `ops/small_dense.py`: on the card a kernel that
+never synchronizes with the host, on the CPU `torch.linalg` in float64.
 
-The loop runs on the host: its condition reads the converged count.
+The loop's gate (fewer than m iterations, fewer than k pairs converged)
+is a device flag: an iteration whose gate has closed leaves the state as
+it was. With `early_exit` the host reads the flag before each iteration
+and stops, as the reference's while loop does; without it all m
+iterations run and nothing is read back, so the whole solve can be
+captured into a CUDA graph. Both give the same theta, U and count.
 """
 
 import torch
 
+from cslam_tpu_torch.ops import small_dense
+
 
 def _eigh_descending(A):
-    w, V = torch.linalg.eigh(A)
+    w, V = small_dense.eigh(A)
     return w.flip(-1), V.flip(-1)
 
 
@@ -61,7 +70,7 @@ def _project_out(basis, U):
 def _extend_basis(X, m):
     n, k = X.shape
     Xupper, Xlower = X[:k], X[k:]
-    u, s, vt = torch.linalg.svd(Xupper)
+    u, s, vt = small_dense.svd(Xupper)
     y = torch.cat([Xupper + u @ vt, Xlower], dim=0)
     other = torch.cat([torch.eye(m, dtype=X.dtype, device=X.device),
                        torch.zeros((n - k - m, m), dtype=X.dtype,
@@ -72,9 +81,11 @@ def _extend_basis(X, m):
     return h
 
 
-def lobpcg_standard(A, X, m: int = 100, tol=None):
+def lobpcg_standard(A, X, m: int = 100, tol=None, early_exit: bool = True):
     """Top-k eigenpairs of the symmetric operator `A` (a callable on
-    (n, k) blocks) from the start block X. Returns (theta, U, iters)."""
+    (n, k) blocks) from the start block X. Returns (theta, U, iters),
+    iters a 0-d int64 tensor on X's device. early_exit=False runs all m
+    iterations under the device gate and reads nothing back."""
     n, k = X.shape
     if k == 0 or k * 5 >= n:
         raise ValueError(f"need 0 < 5k < n, got k={k}, n={n}")
@@ -85,25 +96,31 @@ def lobpcg_standard(A, X, m: int = 100, tol=None):
     AX = A(X)
     theta = torch.sum(X * AX, dim=0, keepdim=True)
     R = AX - theta * X
-    i = 0
-    converged = 0
-    while i < m and converged < k:
-        R = _project_out(torch.cat((X, P), dim=1), R)
-        XPR = torch.cat((X, P, R), dim=1)
+    i = torch.zeros((), dtype=torch.int64, device=X.device)
+    active = torch.full((), m > 0, dtype=torch.bool, device=X.device)
+    for step in range(m):
+        if early_exit and step > 0 and not bool(active):
+            break
+        R_n = _project_out(torch.cat((X, P), dim=1), R)
+        XPR = torch.cat((X, P, R_n), dim=1)
         theta_all, Q = _eigh_descending(XPR.T @ A(XPR))
         B = Q[:, :k]
         B = B / _col_norms(B)
-        X = XPR @ B
-        X = X / _col_norms(X)
-        q, _ = torch.linalg.qr(Q[:k, k:].T)
-        P = XPR @ (Q[:, k:] @ q)
-        normP = _col_norms(P)
-        P = P / torch.where(normP == 0, torch.ones_like(normP), normP)
-        AX = A(X)
-        R = AX - theta_all[None, :k] * X
-        resid_norms = torch.linalg.vector_norm(R, dim=0)
+        X_n = XPR @ B
+        X_n = X_n / _col_norms(X_n)
+        q, _ = small_dense.qr(Q[:k, k:].T)
+        P_n = XPR @ (Q[:, k:] @ q)
+        normP = _col_norms(P_n)
+        P_n = P_n / torch.where(normP == 0, torch.ones_like(normP), normP)
+        AX = A(X_n)
+        R_n = AX - theta_all[None, :k] * X_n
+        resid_norms = torch.linalg.vector_norm(R_n, dim=0)
         reltol = (torch.linalg.vector_norm(AX, dim=0) + theta_all[:k]) * n * 10
-        converged = int(torch.sum(resid_norms < tol * reltol))
-        theta = theta_all[None, :k]
-        i += 1
+        converged = torch.sum(resid_norms < tol * reltol)
+        X = torch.where(active, X_n, X)
+        P = torch.where(active, P_n, P)
+        R = torch.where(active, R_n, R)
+        theta = torch.where(active, theta_all[None, :k], theta)
+        i = i + active.to(i.dtype)
+        active = active & (i < m) & (converged < k)
     return theta[0, :], X, i

@@ -22,14 +22,25 @@ solvers (a member's gated loops stop independently).
 
 Each `MAC.fw_subset` call is the host span `mac_fw` and adds its
 Frank-Wolfe iterations to the counter `mac` (`fw_iters`).
+
+On the card the warm-LOBPCG loop runs each Frank-Wolfe iteration as one
+CUDA graph replay (`_StepGraph`): the Laplacian, LOBPCG under its device
+gate with the small factorizations in `ops/small_dense.py`, the
+supergradient, the top-k direction, the dual bound and the step; the
+host reads only the done flag after each replay, so the iterations are
+the eager loop's. A capture is the span `mac_capture`; the counter `mac`
+adds `graph_captures` and `graph_steps` (the iterations replayed).
 """
 
+import threading
+from collections import OrderedDict
 from typing import List, NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from cslam_tpu_torch.device import DeviceLike, resolve_device
+from cslam_tpu_torch.ops import small_dense
 from cslam_tpu_torch.ops.fiedler import fiedler_pair_inverse
 from cslam_tpu_torch.ops.knn import topk_desc
 from cslam_tpu_torch.ops.laplacian import (incidence_matrix, laplacian_dense,
@@ -42,6 +53,9 @@ from cslam_tpu_torch.utils.edges import Edge
 # Above this node count the dense Fiedler forms give way to the
 # matrix-free inverse iteration over edge lists.
 _LOBPCG_NODE_THRESHOLD = 2048
+# captured warm-LOBPCG Frank-Wolfe iterations kept at once (one per
+# problem shape; a pass of sim5r.revisit meets about a dozen)
+_GRAPH_CACHE_SIZE = 32
 
 
 class DisconnectedGraphError(RuntimeError):
@@ -124,12 +138,6 @@ def _fiedler_dense_squaring(L, node_mask, squarings=16):
     return lam, v
 
 
-def _scatter_one(base, idx, value):
-    out = base.clone()
-    out[idx] = value
-    return out
-
-
 def _swap_batch(sel, add_idx, rem_idx, swap_k):
     """(swap_k^2, E) selections: row a*swap_k + r removes rem_idx[r]
     and adds add_idx[a]."""
@@ -142,16 +150,216 @@ def _swap_batch(sel, add_idx, rem_idx, swap_k):
     return sels, aa, rr
 
 
-def _fw_step(w, s, it: int):
-    """The Frank-Wolfe step w + alpha (s - w), alpha = 2 / (it + 2), with
-    one rounding, as the reference's compiled step (a fused multiply-add
-    on its CPU backend): the product of two f32 values is exact in f64,
-    so the f64 sum rounds once to f32. Candidates picked at different
-    iterations can reach equal w in exact arithmetic (7/15 and 7/15);
-    the rounding of this step then decides which one the tie-break keeps,
-    so it must round as the reference does (a mul then an add did not)."""
-    alpha = float(np.float32(2.0) / np.float32(it + 2.0))
+def _fw_alpha(it: int) -> float:
+    """The step size 2 / (it + 2), in float32 as the reference's."""
+    return float(np.float32(2.0) / np.float32(it + 2.0))
+
+
+def _fw_step(w, s, alpha):
+    """The Frank-Wolfe step w + alpha (s - w), alpha = _fw_alpha(it) (a
+    float, or a float32 tensor holding it), with one rounding, as the
+    reference's compiled step (a fused multiply-add on its CPU backend):
+    the product of two f32 values is exact in f64, so the f64 sum rounds
+    once to f32. Candidates picked at different iterations can reach
+    equal w in exact arithmetic (7/15 and 7/15); the rounding of this
+    step then decides which one the tie-break keeps, so it must round as
+    the reference does (a mul then an add did not)."""
     return (w.double() + alpha * (s - w).double()).float()
+
+
+class _Problem(NamedTuple):
+    """The tensors of one dense selection problem."""
+    L_fixed: torch.Tensor    # (P, P) Laplacian of the fixed edges
+    B: torch.Tensor          # (P, E) candidates' incidence matrix
+    weights: torch.Tensor    # (E,)
+    valid: torch.Tensor      # (E,) 1 for a real candidate
+    node_mask: torch.Tensor  # (P,) 1 for a real node
+    ei: torch.Tensor         # (E,) int64 endpoints
+    ej: torch.Tensor
+    ninf: torch.Tensor       # 0-d -inf
+
+
+def _supergrad(pb, v):
+    return pb.weights * torch.square(v[pb.ei] - v[pb.ej]) * pb.valid
+
+
+def _round_topk(pb, key_vec, k):
+    _, idx = topk_desc(torch.where(pb.valid > 0, key_vec, pb.ninf), k)
+    return torch.zeros_like(key_vec).index_fill_(0, idx, 1.0)
+
+
+def _shifted_laplacian(pb, w):
+    """L_s: the shifted/deflated Laplacian of the fixed edges and the
+    candidates weighted by w."""
+    L = pb.L_fixed + laplacian_from_incidence(pb.B, w * pb.weights)
+    return _shift_deflate(L, pb.node_mask)[0]
+
+
+def _warm_fiedler(pb, w, X, lobpcg_iters, early_exit=True):
+    """(lambda_2, v_2, U): LOBPCG on sigma*I - L_s from the block X,
+    whose largest eigenpairs are the smallest of the shifted Laplacian
+    L_s; U is the block carried to the next step."""
+    L_s = _shifted_laplacian(pb, w)
+    sigma = 2.0 * torch.max(torch.diagonal(L_s)) + 1.0
+    theta, U, _ = lobpcg_standard(lambda Y: sigma * Y - L_s @ Y, X,
+                                  m=lobpcg_iters, early_exit=early_exit)
+    return sigma - theta[0], U[:, 0], U
+
+
+def _fw_iteration(pb, k, w, carry, u, alpha, tol, fiedler_at):
+    """One Frank-Wolfe iteration: (w, carry, u, done), done a 0-d bool
+    tensor (duality gap below tol); w steps only while the gap is open."""
+    lam2, v, carry = fiedler_at(w, carry)
+    grad = _supergrad(pb, v)
+    s = _round_topk(pb, grad, k)
+    u = torch.minimum(u, lam2 + torch.dot(grad, s - w))
+    done = (u - lam2) < tol
+    w = torch.where(done, w, _fw_step(w, s, alpha))
+    return w, carry, u, done
+
+
+def _fw_loop(pb, k, w, carry, tol, max_iters, fiedler_at):
+    """The Frank-Wolfe loop run eagerly, the host reading the gap's test
+    after each iteration. Returns (w, u, iterations)."""
+    u = torch.full((), float("inf"), device=w.device)
+    it = 0
+    done = False
+    while it < max_iters and not done:
+        w, carry, u, done_t = _fw_iteration(pb, k, w, carry, u,
+                                            _fw_alpha(it), tol, fiedler_at)
+        done = bool(done_t)
+        it += 1
+    return w, u, it
+
+
+class _StepGraph:
+    """One warm-LOBPCG Frank-Wolfe iteration captured as a CUDA graph.
+    Inputs and carried state live in static buffers that the graph
+    updates in place: w, the LOBPCG block X, the dual bound u, the done
+    flag and the step counter that indexes the float32 alpha table."""
+
+    def __init__(self, dev, P, E, k, lobpcg_iters, lobpcg_block, steps):
+        f32 = dict(dtype=torch.float32, device=dev)
+        i64 = dict(dtype=torch.int64, device=dev)
+        self.pb = _Problem(
+            torch.empty((P, P), **f32), torch.empty((P, E), **f32),
+            torch.empty(E, **f32), torch.empty(E, **f32),
+            torch.empty(P, **f32), torch.empty(E, **i64),
+            torch.empty(E, **i64), torch.empty((), **f32))
+        self.w = torch.empty(E, **f32)
+        self.X = torch.empty((P, lobpcg_block), **f32)
+        self.u = torch.empty((), **f32)
+        self.tol = torch.empty((), **f32)
+        self.done = torch.empty((), dtype=torch.bool, device=dev)
+        self.it = torch.empty((), **i64)
+        self.alpha = torch.tensor([_fw_alpha(i) for i in range(steps)],
+                                  **f32)
+        self.k = k
+        self.lobpcg_iters = lobpcg_iters
+        self.graph = None
+        self.launches = {}  # small-dense launches in one replay
+
+    def load(self, pb, w_init, X, tol):
+        for dst, src in zip(self.pb, pb):
+            dst.copy_(src)
+        self.w.copy_(w_init)
+        self.X.copy_(X)
+        self.u.fill_(float("inf"))
+        self.tol.fill_(tol)
+        self.done.fill_(False)
+        self.it.zero_()
+
+    def step(self):
+        pb = self.pb
+        alpha = torch.index_select(self.alpha, 0, self.it.reshape(1))
+        w, X, u, done = _fw_iteration(
+            pb, self.k, self.w, self.X, self.u, alpha, self.tol,
+            lambda w, X: _warm_fiedler(pb, w, X, self.lobpcg_iters,
+                                       early_exit=False))
+        self.w.copy_(w)
+        self.X.copy_(X)
+        self.u.copy_(u)
+        self.done.copy_(done)
+        self.it.add_(1)
+
+    def capture(self, pool, stream):
+        """Capture step() on `stream` into the shared pool, after one
+        uncaptured run there (libraries and the kernel library load
+        outside the capture). Leaves the buffers to be loaded again."""
+        current = torch.cuda.current_stream()
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            self.step()
+        current.wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        before = dict(small_dense.CAPTURED)
+        # capture_begin / capture_end as torch.cuda.graph calls them,
+        # without its device-wide synchronize and empty_cache: those wait
+        # for the solve's worker thread and cudaFree every cached block;
+        # thread_local: that thread keeps launching
+        with torch.cuda.stream(stream):
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                self.step()
+            finally:
+                graph.capture_end()
+        self.graph = graph
+        self.launches = {name: n - before[name]
+                         for name, n in small_dense.CAPTURED.items()}
+
+
+class _StepGraphs:
+    """The captured Frank-Wolfe iterations, by (device, P, E, k,
+    lobpcg_iters, lobpcg_block, alpha table length): at most `size`,
+    the least recently used dropped first; per device one memory pool
+    and one capture stream, shared by its graphs (one runs at a time)."""
+
+    def __init__(self, size):
+        self.size = size
+        self.lock = threading.Lock()
+        self.entries = OrderedDict()
+        self.pools = {}
+
+    def run(self, pb, w_init, X, tol, *, k, max_iters, lobpcg_iters):
+        """The Frank-Wolfe loop by graph replays from w_init and the
+        LOBPCG block X, the host reading the done flag after each.
+        Returns (w, u, iterations)."""
+        dev = w_init.device
+        P, E = pb.B.shape
+        lobpcg_block = X.shape[1]
+        steps = _next_pow2(max_iters, minimum=32)
+        key = (dev.index, P, E, k, lobpcg_iters, lobpcg_block, steps)
+        with self.lock, torch.cuda.device(dev):
+            entry = self.entries.get(key)
+            if entry is None:
+                with span("mac_capture", P=P, E=E, k=k):
+                    if dev.index not in self.pools:
+                        self.pools[dev.index] = (
+                            torch.cuda.graph_pool_handle(),
+                            torch.cuda.Stream(dev))
+                    entry = _StepGraph(dev, P, E, k, lobpcg_iters,
+                                       lobpcg_block, steps)
+                    entry.load(pb, w_init, X, tol)
+                    entry.capture(*self.pools[dev.index])
+                tracer.counter("mac", graph_captures=1)
+                self.entries[key] = entry
+                while len(self.entries) > self.size:
+                    self.entries.popitem(last=False)
+            else:
+                self.entries.move_to_end(key)
+            entry.load(pb, w_init, X, tol)
+            it = 0
+            done = False
+            while it < max_iters and not done:
+                entry.graph.replay()
+                done = bool(entry.done)
+                it += 1
+            small_dense.count_replays(entry.launches, it)
+            tracer.counter("mac", graph_steps=it)
+            return entry.w.clone(), entry.u.clone(), it
+
+
+_STEP_GRAPHS = _StepGraphs(_GRAPH_CACHE_SIZE)
 
 
 def _fw_subset(L_fixed, e_i, e_j, weights, valid, node_mask, w_init,
@@ -160,10 +368,17 @@ def _fw_subset(L_fixed, e_i, e_j, weights, valid, node_mask, w_init,
                fiedler_method="eigh", lobpcg_iters=16, lobpcg_block=4,
                refine_rounds=0, swap_k=4):
     """Frank-Wolfe subset selection. Returns (w_rounded, w_unrounded,
-    upper_bound) as tensors and the Frank-Wolfe iterations run."""
+    upper_bound) as tensors and the Frank-Wolfe iterations run.
+
+    The warm-LOBPCG loop on the card runs each iteration as one CUDA
+    graph replay (_STEP_GRAPHS); every other path runs eagerly."""
     dev = weights.device
     ninf = torch.tensor(float("-inf"), device=dev)
     ei, ej = e_i.to(torch.int64), e_j.to(torch.int64)
+    B = None
+    if fiedler_method != "matfree":
+        B = incidence_matrix(e_i, e_j, num_nodes)
+    pb = _Problem(L_fixed, B, weights, valid, node_mask, ei, ej, ninf)
 
     if fiedler_method == "matfree":
         all_i = torch.cat([fixed_e_i, e_i])
@@ -175,59 +390,36 @@ def _fw_subset(L_fixed, e_i, e_j, weights, valid, node_mask, w_init,
             return fiedler_pair_inverse(all_i, all_j, all_w, node_mask,
                                         v0=v0, invit_iters=invit,
                                         cg_iters=cg)
-
-        def fiedler_at(w, v):
-            lam2, v = eval_sel(w, v, 6, 16)
-            return lam2, v, v
-        carry = torch.from_numpy(
-            jax_random.normal(3, (node_mask.shape[0],))).to(dev)
     else:
-        B = incidence_matrix(e_i, e_j, num_nodes)
-
-        def shifted(w):
-            L = L_fixed + laplacian_from_incidence(B, w * weights)
-            return _shift_deflate(L, node_mask)[0]
-
         def rounding_lam2(sel):
             L = L_fixed + laplacian_from_incidence(B, sel * weights)
             return _fiedler_dense_squaring(L, node_mask)[0]
 
-        if fiedler_method == "warm-lobpcg":
-            def fiedler_at(w, X):
-                L_s = shifted(w)
-                # largest eigenpairs of sigma*I - L_s == smallest of L_s
-                sigma = 2.0 * torch.max(torch.diagonal(L_s)) + 1.0
-                theta, U, _ = lobpcg_standard(lambda Y: sigma * Y - L_s @ Y,
-                                              X, m=lobpcg_iters)
-                return sigma - theta[0], U[:, 0], U
-            carry = torch.from_numpy(
-                jax_random.normal(3, (num_nodes, lobpcg_block))).to(dev)
+    if fiedler_method == "warm-lobpcg":
+        X = torch.from_numpy(
+            jax_random.normal(3, (num_nodes, lobpcg_block))).to(dev)
+        if dev.type == "cuda":
+            w, u, it = _STEP_GRAPHS.run(
+                pb, w_init.float(), X, duality_gap_tol, k=k,
+                max_iters=max_iters, lobpcg_iters=lobpcg_iters)
         else:
-            def fiedler_at(w, carry):
-                vals, vecs = torch.linalg.eigh(shifted(w))
-                return vals[0], vecs[:, 0], carry
-            carry = torch.zeros((1,), device=dev)
-
-    def round_topk(key_vec):
-        _, idx = topk_desc(torch.where(valid > 0, key_vec, ninf), k)
-        return _scatter_one(torch.zeros_like(key_vec), idx, 1.0)
-
-    def supergrad(v):
-        return weights * torch.square(v[ei] - v[ej]) * valid
-
-    it = 0
-    w = w_init.float()
-    u = torch.tensor(float("inf"), device=dev)
-    done = False
-    while it < max_iters and not done:
-        lam2, v, carry = fiedler_at(w, carry)
-        grad = supergrad(v)
-        s = round_topk(grad)
-        u = torch.minimum(u, lam2 + torch.dot(grad, s - w))
-        done = bool((u - lam2) < duality_gap_tol)
-        if not done:
-            w = _fw_step(w, s, it)
-        it += 1
+            w, u, it = _fw_loop(
+                pb, k, w_init.float(), X, duality_gap_tol, max_iters,
+                lambda w, X: _warm_fiedler(pb, w, X, lobpcg_iters))
+    elif fiedler_method == "matfree":
+        def fiedler_matfree(w, v):
+            lam2, v = eval_sel(w, v, 6, 16)
+            return lam2, v, v
+        v0 = torch.from_numpy(
+            jax_random.normal(3, (node_mask.shape[0],))).to(dev)
+        w, u, it = _fw_loop(pb, k, w_init.float(), v0, duality_gap_tol,
+                            max_iters, fiedler_matfree)
+    else:
+        def fiedler_eigh(w, carry):
+            vals, vecs = torch.linalg.eigh(_shifted_laplacian(pb, w))
+            return vals[0], vecs[:, 0], carry
+        w, u, it = _fw_loop(pb, k, w_init.float(), None, duality_gap_tol,
+                            max_iters, fiedler_eigh)
 
     # tie-break rounding: primary key w, secondary key original weight
     # (the reference's lexsort; its last key is primary)
@@ -241,7 +433,7 @@ def _fw_subset(L_fixed, e_i, e_j, weights, valid, node_mask, w_init,
     if fiedler_method != "matfree" and k > 0:
         # >=greedy safeguard: keep the FW rounding only if it beats the
         # greedy-by-weight rounding by the squaring estimate's margin
-        w_greedy = round_topk(weights)
+        w_greedy = _round_topk(pb, weights, k)
         lam2s = rounding_lam2(torch.stack([w_rounded, w_greedy]))
         if not bool(lam2s[0] > lam2s[1] * 1.003):
             w_rounded = w_greedy
@@ -251,7 +443,7 @@ def _fw_subset(L_fixed, e_i, e_j, weights, valid, node_mask, w_init,
         for _ in range(refine_rounds):
             L = L_fixed + laplacian_from_incidence(B, w_rounded * weights)
             lam2_cur, v = _fiedler_dense_squaring(L, node_mask)
-            grad = supergrad(v)
+            grad = _supergrad(pb, v)
             sel = w_rounded
             add_s, add_idx = topk_desc(
                 torch.where((sel < 0.5) & (valid > 0), grad, ninf), swap_k)
@@ -270,7 +462,7 @@ def _fw_subset(L_fixed, e_i, e_j, weights, valid, node_mask, w_init,
         v_carry = torch.from_numpy(
             jax_random.normal(11, (node_mask.shape[0],))).to(dev)
         # >=greedy safeguard, matfree flavor
-        w_greedy = round_topk(weights)
+        w_greedy = _round_topk(pb, weights, k)
         lam_fw, v_carry = eval_sel(w_rounded, v_carry, 12, 24)
         lam_gr, _ = eval_sel(w_greedy, v_carry, 12, 24)
         if not bool(lam_fw > lam_gr * 1.01):
@@ -278,7 +470,7 @@ def _fw_subset(L_fixed, e_i, e_j, weights, valid, node_mask, w_init,
         for _ in range(refine_rounds):
             sel = w_rounded
             lam2_cur, v_carry = eval_sel(sel, v_carry, 8, 20)
-            grad = supergrad(v_carry)
+            grad = _supergrad(pb, v_carry)
             add_s, add_idx = topk_desc(
                 torch.where((sel < 0.5) & (valid > 0), grad, ninf), swap_k)
             rem_s, rem_idx = topk_desc(

@@ -26,6 +26,7 @@ those of tests/test_torch_models.py (f32 max abs 1e-5; bf16 max abs
 places).
 """
 
+import functools
 import json
 
 import numpy as np
@@ -699,3 +700,260 @@ def test_nccl_mesh_one_rank_per_card(cuda):
         _mesh_knn_against_single_card(cs, mesh, gen)
         _mesh_solve_against_single_card(cs, mesh)
     assert not multiprocessing.active_children()
+
+
+# -- MAC's warm-LOBPCG step: the small-dense kernel and the CUDA graph -----
+
+def _small_dense_inputs(gen, batch, m, n, kind):
+    """(batch, m, n) float32: random, graded (columns scaled over six
+    decades) or, square only, symmetric with nearly equal eigenvalue
+    pairs (1e-7 apart)."""
+    A = torch.randn((batch, m, n), generator=gen, device="cuda",
+                    dtype=torch.float64)
+    if kind == "graded":
+        A = A * torch.logspace(0, -6, n, device="cuda",
+                               dtype=torch.float64)
+    if kind == "degenerate":
+        Q = torch.linalg.qr(A)[0]
+        ev = torch.arange(n, device="cuda", dtype=torch.float64) // 2
+        ev = ev + 1e-7 * torch.randn((batch, n), generator=gen,
+                                     device="cuda", dtype=torch.float64)
+        A = Q @ torch.diag_embed(ev) @ Q.mT
+    return A.float()
+
+
+@pytest.mark.parametrize("kind", ["random", "graded", "degenerate"])
+@pytest.mark.parametrize("batch", [1, 7, 64])
+def test_small_dense_kernel_matches_plain(cuda, kind, batch):
+    """The kernel against the plain float64 version at LOBPCG's shapes
+    (eigh 4 x 4 and 12 x 12, QR 8 x 4, SVD 4 x 4) and at the kernel's
+    largest (16, 16 x 8, 8): eigenvalues, singular values and the
+    products V diag(w) V^T, Q R and U diag(S) V^T within 1e-6 of the
+    matrix's largest entry; the factors orthonormal within 1e-6."""
+    from cslam_tpu_torch.ops import small_dense as sd
+    gen = torch.Generator(device="cuda").manual_seed(17 + batch)
+    before = dict(sd.LAUNCHES)
+
+    def close(got, want, scale, what):
+        err = float((got.double() - want.double()).abs().max() / scale)
+        assert err <= 1e-6, f"{what}: {err:.3g} of the largest entry"
+
+    def orthonormal(M, what):
+        eye = torch.eye(M.shape[-1], device="cuda", dtype=torch.float64)
+        close(M.double().mT @ M.double(), eye.expand_as(
+            M.mT @ M).double(), 1.0, what)
+
+    for n in (4, 12, 16):
+        A = _small_dense_inputs(gen, batch, n, n, kind)
+        A = (A + A.mT) / 2 if kind != "degenerate" else A
+        scale = float(A.abs().max())
+        w, V = sd.eigh(A)
+        w_p, _ = sd.eigh_plain(A)
+        torch.cuda.synchronize()
+        close(w, w_p, scale, f"eigh {n} values")
+        close(V.double() @ torch.diag_embed(w.double()) @ V.double().mT,
+              A, scale, f"eigh {n} V diag(w) V^T")
+        orthonormal(V, f"eigh {n} V")
+    for m, n in ((8, 4), (12, 4), (16, 8)):
+        kind_qr = "random" if kind == "degenerate" else kind
+        A = _small_dense_inputs(gen, batch, m, n, kind_qr)
+        Q, R = sd.qr(A)
+        torch.cuda.synchronize()
+        close(Q.double() @ R.double(), A, float(A.abs().max()),
+              f"qr {m}x{n} QR")
+        orthonormal(Q, f"qr {m}x{n} Q")
+        assert bool((R.tril(-1) == 0).all())
+    for n in (4, 8):
+        kind_svd = "random" if kind == "degenerate" else kind
+        A = _small_dense_inputs(gen, batch, n, n, kind_svd)
+        U, S, Vh = sd.svd(A)
+        _, S_p, _ = sd.svd_plain(A)
+        torch.cuda.synchronize()
+        scale = float(A.abs().max())
+        close(S, S_p, scale, f"svd {n} values")
+        close(U.double() @ torch.diag_embed(S.double()) @ Vh.double(), A,
+              scale, f"svd {n} U diag(S) V^T")
+        orthonormal(U, f"svd {n} U")
+        orthonormal(Vh.mT, f"svd {n} V")
+    assert {k: sd.LAUNCHES[k] - before[k] for k in before} == \
+        {"small_eigh": 3, "small_qr": 3, "small_svd": 2}
+
+
+def test_small_dense_kernel_rejects_what_it_does_not_take(cuda):
+    from cslam_tpu_torch.ops import small_dense as sd
+    with pytest.raises(ValueError):
+        sd.eigh(torch.zeros((17, 17), device="cuda"))
+    with pytest.raises(ValueError):
+        sd.qr(torch.zeros((4, 8), device="cuda"))
+    with pytest.raises(ValueError):
+        sd.svd(torch.zeros((9, 9), device="cuda"))
+    with pytest.raises(TypeError):
+        sd.eigh(torch.zeros((4, 4), device="cuda", dtype=torch.float64))
+    # a singular matrix: U completed to an orthonormal basis
+    A = torch.zeros((4, 4), device="cuda")
+    A[0, 0] = 2.0
+    U, S, Vh = sd.svd(A)
+    torch.testing.assert_close(S, torch.tensor([2.0, 0, 0, 0],
+                                               device="cuda"))
+    torch.testing.assert_close(U.T @ U, torch.eye(4, device="cuda"),
+                               rtol=0, atol=1e-6)
+
+
+def _mac_problem(n, m, seed, k=5):
+    from cslam_tpu_torch.sparsification import mac as tmac
+    from cslam_tpu_torch.utils.edges import Edge
+    rng = np.random.default_rng(seed)
+    fixed = [Edge(i, i + 1, 1.0) for i in range(n - 1)]
+    cand, seen = [], set()
+    while len(cand) < m:
+        i, j = sorted(rng.integers(0, n, 2).tolist())
+        if j - i < 2 or (i, j) in seen:
+            continue
+        seen.add((i, j))
+        cand.append(Edge(i, j, float(rng.random()) + 0.1))
+    mac = tmac.MAC(fixed, cand, n, device="cuda")
+    w0 = np.zeros(m, np.float32)
+    w0[np.argsort([e.weight for e in cand])[-k:]] = 1.0
+    pb = tmac._Problem(
+        mac.L_fixed, tmac.incidence_matrix(mac._e_i_d, mac._e_j_d, mac._P),
+        mac._weights_d, mac._valid_d, mac.node_mask,
+        mac._e_i_d.long(), mac._e_j_d.long(),
+        torch.tensor(float("-inf"), device="cuda"))
+    return tmac, mac, pb, mac._pad_w(w0), k
+
+
+def _eager_fw(tmac, mac, pb, w0, X, tol, *, k, max_iters, lobpcg_iters):
+    """The eager warm-LOBPCG loop on the card (LOBPCG stopping early by
+    reading its flag), with _STEP_GRAPHS.run's signature."""
+    return tmac._fw_loop(
+        pb, k, w0, X, tol, max_iters,
+        lambda w, X: tmac._warm_fiedler(pb, w, X, lobpcg_iters))
+
+
+def _start_block(tmac, mac):
+    return torch.from_numpy(tmac.jax_random.normal(
+        3, (mac._P, mac.lobpcg_block))).cuda()
+
+
+def _fw(run, tmac, mac, pb, w0, k, max_iters, tol=1e-8):
+    return run(pb, w0, _start_block(tmac, mac), tol, k=k,
+               max_iters=max_iters, lobpcg_iters=mac.lobpcg_iters)
+
+
+@pytest.mark.parametrize("tol", [1e-8, 0.05])
+@pytest.mark.parametrize("n,m", [(60, 20), (400, 120), (1860, 300)])
+def test_fw_graph_replay_matches_eager(cuda, n, m, tol):
+    """P = 64, 512 and 2048: the Frank-Wolfe loop by graph replays gives
+    w, u and the iteration count bitwise equal to the eager loop on the
+    card, both at the 20-iteration cap (tol 1e-8) and stopping early on
+    the replayed done flag (tol 0.05); a second call replays the cached
+    graph alike."""
+    tmac, mac, pb, w0, k = _mac_problem(n, m, seed=n)
+    assert mac.fiedler_method == "warm-lobpcg"
+    w_e, u_e, it_e = _fw(functools.partial(_eager_fw, tmac, mac), tmac,
+                         mac, pb, w0, k, 20, tol)
+    assert (it_e < 20) == (tol > 1e-3)
+    for _ in range(2):  # captured, then replayed from the cache
+        w_g, u_g, it_g = _fw(tmac._STEP_GRAPHS.run, tmac, mac, pb, w0, k,
+                             20, tol)
+        assert it_g == it_e
+        assert torch.equal(w_g, w_e)
+        assert torch.equal(u_g, u_e)
+
+
+@pytest.mark.parametrize("tol", [1e-8, 0.05])
+@pytest.mark.parametrize("n,m", [(400, 120), (1860, 300)])
+def test_fw_subset_on_card_matches_eager(cuda, monkeypatch, n, m, tol):
+    """MAC.fw_subset on the card, whose Frank-Wolfe loop replays graphs,
+    gives the rounded and unrounded selections, the upper bound and the
+    iteration count of the same call with the eager loop in its place;
+    the counters `mac.graph_steps` and `mac.fw_iters` agree."""
+    from cslam_tpu_torch.runtime.tracing import tracer
+    tmac, mac, _, _, k = _mac_problem(n, m, seed=n + 1)
+    rng = np.random.default_rng(n)
+    w0 = np.zeros(m, np.float32)
+    w0[rng.choice(m, k, replace=False)] = 1.0
+
+    def traced(n_calls):
+        tracer.clear()
+        tracer.enable(None)
+        try:
+            res = [mac.fw_subset(w0, k, max_iters=20, duality_gap_tol=tol)
+                   for _ in range(n_calls)]
+            return res, tracer.counter_totals()["mac"]
+        finally:
+            tracer.disable()
+            tracer.clear()
+
+    got, counts = traced(2)
+    assert counts["graph_steps"] == counts["fw_iters"]
+    monkeypatch.setattr(tmac._STEP_GRAPHS, "run",
+                        functools.partial(_eager_fw, tmac, mac))
+    (want,), counts_eager = traced(1)
+    assert "graph_steps" not in counts_eager
+    assert counts["fw_iters"] == 2 * counts_eager["fw_iters"]
+    for res in got:
+        np.testing.assert_array_equal(res.w, want.w)
+        np.testing.assert_array_equal(res.w_unrounded, want.w_unrounded)
+        assert res.upper_bound == want.upper_bound
+
+
+def test_fw_graph_replay_reads_nothing_back(cuda):
+    """A replay of a captured step synchronizes with nothing (sync debug
+    mode "error" raises on any synchronizing call)."""
+    tmac, mac, pb, w0, k = _mac_problem(400, 120, seed=5)
+    _fw(tmac._STEP_GRAPHS.run, tmac, mac, pb, w0, k, 3)
+    key = next(key for key in tmac._STEP_GRAPHS.entries
+               if key[1:4] == (mac._P, mac._E, k))
+    entry = tmac._STEP_GRAPHS.entries[key]
+    entry.load(pb, w0, _start_block(tmac, mac), 1e-8)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            entry.graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert int(entry.it) == 3
+
+
+def test_fw_graph_capture_beside_a_solve(cuda):
+    """A capture taken while a PGO solve runs on another thread succeeds,
+    and its replays equal the eager loop."""
+    import threading
+
+    from cslam_tpu_torch.backend import pgo
+    cs = _chip_smoke()
+    fg, _ = cs.oracle_graph(200, 24, 4, seed=0)
+    tmac, mac, pb, w0, k = _mac_problem(300, 90, seed=3, k=4)
+    for key in [key for key in tmac._STEP_GRAPHS.entries
+                if key[1:4] == (mac._P, mac._E, k)]:
+        del tmac._STEP_GRAPHS.entries[key]
+    started, stop, errors = threading.Event(), threading.Event(), []
+
+    def solve():
+        try:
+            while not stop.is_set():
+                g = fg.to_arrays(device="cuda")
+                started.set()
+                pgo.gnc_optimize(g, pgo.PGOConfig(linear_solver="pcg"))
+        except Exception as exc:  # reported by the main thread
+            errors.append(exc)
+            started.set()
+
+    th = threading.Thread(target=solve, daemon=True)
+    th.start()
+    try:
+        assert started.wait(120)
+        captures = len(tmac._STEP_GRAPHS.entries)
+        w_g, u_g, it_g = _fw(tmac._STEP_GRAPHS.run, tmac, mac, pb, w0,
+                             k, 20)
+        assert th.is_alive() and not errors
+        assert len(tmac._STEP_GRAPHS.entries) == captures + 1
+    finally:
+        stop.set()
+        th.join(300)
+    assert not th.is_alive() and not errors
+    w_e, u_e, it_e = _fw(functools.partial(_eager_fw, tmac, mac), tmac,
+                         mac, pb, w0, k, 20)
+    assert it_g == it_e and torch.equal(w_g, w_e) and torch.equal(u_g, u_e)

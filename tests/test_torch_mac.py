@@ -11,6 +11,8 @@ libraries through the Frank-Wolfe iterations, so its selections are
 held to the reference's quality contracts instead (ROADMAP queue 3).
 """
 
+import zlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -273,3 +275,177 @@ def test_mac_disconnected_raises_and_empty():
         mac.fw_subset(np.array([1.0]), 1)
     empty = tmac.MAC(fixed, [], 4, device="cpu").fw_subset(np.zeros(0), 3)
     assert empty.w.shape == (0,) and empty.upper_bound == float("inf")
+
+
+# -- LOBPCG's device gate and the small-dense factorizations --------------
+
+def _shifted_laplacian_operator(seed, n, P, extra):
+    """sigma*I - L_s of a random connected graph padded to P, as MAC's
+    warm-LOBPCG path builds it, and the path's start block."""
+    rng = np.random.default_rng(seed)
+    e_i, e_j, w = random_connected_graph(rng, n, extra)
+    L = tlap.laplacian_dense(_t(e_i), _t(e_j), _t(w), P)
+    mask = torch.zeros(P)
+    mask[:n] = 1.0
+    L_s = tmac._shift_deflate(L, mask)[0]
+    sigma = 2.0 * torch.max(torch.diagonal(L_s)) + 1.0
+    X0 = torch.from_numpy(jax_random.normal(3, (P, 4)))
+    return (lambda Y: sigma * Y - L_s @ Y), X0
+
+
+@pytest.mark.parametrize("seed,n,P,extra,m,converges", [
+    (2, 48, 64, 30, 200, True),    # test_fiedler.py's graph: stops early
+    (2, 48, 64, 30, 16, False),    # MAC's 16 iterations: the cap
+    (1, 200, 256, 100, 16, False),
+])
+def test_lobpcg_device_gate_matches_early_exit(seed, n, P, extra, m,
+                                               converges):
+    """All m iterations under the device gate, nothing read back, give
+    theta, U and the iteration count bitwise equal to the loop that
+    reads the gate and stops."""
+    from cslam_tpu_torch.ops.lobpcg import lobpcg_standard
+    A, X0 = _shifted_laplacian_operator(seed, n, P, extra)
+    theta_e, U_e, it_e = lobpcg_standard(A, X0, m=m)
+    theta_g, U_g, it_g = lobpcg_standard(A, X0, m=m, early_exit=False)
+    assert int(it_g) == int(it_e)
+    assert (int(it_e) < m) == converges
+    assert torch.equal(theta_g, theta_e)
+    assert torch.equal(U_g, U_e)
+
+
+def _small_dense_input(rng, kind, m, n, symmetric):
+    """random, graded (columns over six decades) or nearly degenerate
+    (eigenvalue / singular value pairs 1e-7 apart; for a tall matrix two
+    columns 1e-7 apart), float32."""
+    A = rng.standard_normal((m, n))
+    if kind == "graded":
+        A = A * np.logspace(0, -6, n)[None, :]
+    if symmetric:
+        A = (A + A.T) / 2
+    if kind == "degenerate":
+        if m == n:
+            Q1 = np.linalg.qr(rng.standard_normal((n, n)))[0]
+            Q2 = np.linalg.qr(rng.standard_normal((n, n)))[0]
+            vals = np.repeat(np.arange(1, n // 2 + 1), 2)[:n] + \
+                1e-7 * rng.standard_normal(n)
+            A = Q1 @ np.diag(vals) @ (Q1 if symmetric else Q2).T
+        else:
+            A[:, 1] = A[:, 0] + 1e-7 * rng.standard_normal(m)
+    return A.astype(np.float32)
+
+
+def _clusters(vals, scale, gap_rel=1e-2):
+    """Index groups of values within gap_rel * scale of a neighbour, each
+    with its distance to the rest of the values."""
+    order = np.argsort(vals)
+    groups, cur = [], [order[0]]
+    for a, b in zip(order[:-1], order[1:]):
+        if vals[b] - vals[a] > gap_rel * scale:
+            groups.append(cur)
+            cur = []
+        cur.append(b)
+    groups.append(cur)
+    out = []
+    for g in groups:
+        rest = np.delete(vals, g)
+        gap = np.min(np.abs(rest[:, None] - vals[g][None, :])) \
+            if rest.size else scale
+        out.append((g, gap))
+    return out
+
+
+def _same_subspaces(vals, V1, V2, scale, what):
+    """Davis-Kahan: each cluster's projector within 20 eps_32 ||A|| / gap
+    (plus 1e-6) of the other's; signs and bases inside a cluster free."""
+    eps = float(np.finfo(np.float32).eps)
+    for g, gap in _clusters(vals, scale):
+        P1 = V1[:, g] @ V1[:, g].T
+        P2 = V2[:, g] @ V2[:, g].T
+        err = np.abs(P1 - P2).max()
+        assert err <= 20 * eps * scale / gap + 1e-6, (what, g, err, gap)
+
+
+@pytest.mark.parametrize("kind", ["random", "graded", "degenerate"])
+@pytest.mark.parametrize("op,shape", [("eigh", (4, 4)), ("eigh", (12, 12)),
+                                      ("qr", (8, 4)), ("svd", (4, 4))])
+def test_small_dense_plain_matches_linalg_f32(kind, op, shape):
+    """The plain version (float64, rounded to float32) against
+    torch.linalg in float32 at LOBPCG's shapes: eigen- and singular
+    values within 1e-6 of the largest, subspaces by Davis-Kahan (signs
+    and bases of near-equal values free), Q R = A within 1e-6 of A's
+    largest entry and the factors orthonormal."""
+    from cslam_tpu_torch.ops import small_dense as sd
+    rng = np.random.default_rng(zlib.crc32(f"{kind} {op} {shape}".encode()))
+    for _ in range(20):
+        A_np = _small_dense_input(rng, kind, *shape, symmetric=op == "eigh")
+        A = torch.from_numpy(A_np)
+        A64 = A_np.astype(np.float64)
+        if op == "eigh":
+            w, V = sd.eigh(A)
+            w32, V32 = torch.linalg.eigh(A)
+            assert w.dtype == V.dtype == torch.float32
+            scale = float(np.abs(w32.numpy()).max())
+            assert np.abs(w.numpy() - w32.numpy()).max() <= 1e-6 * scale
+            _same_subspaces(w.numpy().astype(np.float64), V.numpy(),
+                            V32.numpy(), scale, "eigh")
+            V64 = V.numpy().astype(np.float64)
+            assert np.abs(V64 @ np.diag(w.numpy()) @ V64.T - A64).max() \
+                <= 1e-6 * np.abs(A64).max()
+        elif op == "qr":
+            Q, R = sd.qr(A)
+            Q32, _ = torch.linalg.qr(A)
+            Q64, R64 = Q.numpy().astype(np.float64), R.numpy()
+            assert np.abs(Q64 @ R64 - A64).max() <= 1e-6 * np.abs(A64).max()
+            assert np.abs(Q64.T @ Q64 - np.eye(shape[1])).max() <= 1e-6
+            # the span of the leading columns (nearly parallel columns
+            # leave the next direction to rounding)
+            lead = 1 if kind == "degenerate" else shape[1]
+            for j in range(1, lead + 1):
+                P1 = Q64[:, :j] @ Q64[:, :j].T
+                P2 = Q32.numpy()[:, :j] @ Q32.numpy()[:, :j].T
+                assert np.abs(P1 - P2).max() <= 1e-5
+        else:
+            U, S, Vh = sd.svd(A)
+            U32, S32, Vh32 = torch.linalg.svd(A)
+            scale = float(S32[0])
+            assert np.abs(S.numpy() - S32.numpy()).max() <= 1e-6 * scale
+            U64, Vh64 = U.numpy().astype(np.float64), Vh.numpy()
+            assert np.abs(U64 @ np.diag(S.numpy()) @ Vh64 - A64).max() \
+                <= 1e-6 * np.abs(A64).max()
+            _same_subspaces(-S.numpy().astype(np.float64), Vh64.T,
+                            Vh32.numpy().T, scale, "svd V")
+
+
+@pytest.mark.parametrize("seed,n,m,k,tol", [(7, 200, 60, 8, 1e-8),
+                                            (0, 120, 40, 6, 1e-8),
+                                            (0, 120, 40, 6, 0.05)])
+def test_fw_step_graph_body_matches_eager_loop(seed, n, m, k, tol):
+    """The body a CUDA graph captures (static buffers updated in place,
+    alpha from the float32 table at the device step counter, LOBPCG under
+    its device gate), run uncaptured on the CPU with the host reading
+    `done` as the replay loop does: w, u and the iteration count bitwise
+    equal to the eager warm-LOBPCG loop. tol 0.05 stops early."""
+    rng = np.random.default_rng(seed)
+    fixed, cand = chain_with_candidates(rng, n, m)
+    mac = tmac.MAC(fixed, cand, n, device="cpu")
+    assert mac.fiedler_method == "warm-lobpcg"
+    w0 = mac._pad_w(_greedy_w0(cand, k))
+    pb = tmac._Problem(
+        mac.L_fixed, tlap.incidence_matrix(mac._e_i_d, mac._e_j_d, mac._P),
+        mac._weights_d, mac._valid_d, mac.node_mask, mac._e_i_d.long(),
+        mac._e_j_d.long(), torch.tensor(float("-inf")))
+    X0 = torch.from_numpy(jax_random.normal(3, (mac._P, mac.lobpcg_block)))
+    w_e, u_e, it_e = tmac._fw_loop(
+        pb, k, w0, X0, tol, 20,
+        lambda w, X: tmac._warm_fiedler(pb, w, X, mac.lobpcg_iters))
+    entry = tmac._StepGraph(torch.device("cpu"), mac._P, mac._E, k,
+                            mac.lobpcg_iters, mac.lobpcg_block, 32)
+    entry.load(pb, w0, X0, tol)
+    it = 0
+    while it < 20 and not bool(entry.done):
+        entry.step()
+        it += 1
+    assert it == it_e == int(entry.it)
+    assert (it < 20) == (tol > 1e-3)
+    assert torch.equal(entry.w, w_e)
+    assert torch.equal(entry.u, u_e)
