@@ -19,8 +19,14 @@ on the host as numpy (they travel in messages), and each verification's
 result comes back to the host: `log_host_copies` counts the
 device-to-host copies this costs (one per feature extraction, per
 LightGlue match, per RANSAC sample draw and per RANSAC result; each
-copies one tensor). Host spans (`runtime/tracing.span`) time the
-stages: feature_extract, lightglue_match, ransac_3d3d, ransac_pnp.
+copies one tensor; the stereo path copies its features and its depths
+apart). Host spans (`runtime/tracing.span`) time the stages:
+feature_extract (SuperPoint's `superpoint_forward` and
+`keypoint_select` inside it), stereo_depth, lightglue_match (args: the
+valid and padded keypoint counts of both sides and the layers),
+ransac_3d3d, ransac_pnp. Each ends in its host copy, so it holds its
+device time. The counter `visual` adds `frames` and `keypoints` (the
+detector's valid ones) per frame and `lightglue_pairs` per match.
 """
 
 from dataclasses import dataclass
@@ -33,7 +39,7 @@ from cslam_tpu_torch.comm import messages as msgs
 from cslam_tpu_torch.device import DeviceLike, resolve_device
 from cslam_tpu_torch.ops import features, matching2d, pnp
 from cslam_tpu_torch.ops.matching2d import RansacResult
-from cslam_tpu_torch.runtime.tracing import span
+from cslam_tpu_torch.runtime.tracing import span, tracer
 
 
 @dataclass
@@ -254,6 +260,7 @@ class RGBDHandler:
                     img, max_keypoints=self.max_keypoints)
             host = torch.cat([xy, desc, mask[:, None]], dim=1).cpu().numpy()
         self.log_host_copies += 1
+        tracer.counter("visual", frames=1, keypoints=int(host[:, -1].sum()))
         return (np.ascontiguousarray(host[:, :2]),
                 np.ascontiguousarray(host[:, 2:-1]),
                 np.ascontiguousarray(host[:, -1]))
@@ -291,7 +298,12 @@ class RGBDHandler:
         return float(np.sum(mask_b)) / denom < 0.5
 
     def _match_learned(self, kf_a: LocalKeyframe, desc_b, xy_b, mask_b):
-        with span("lightglue_match", robot=self.robot_id):
+        with span("lightglue_match", robot=self.robot_id,
+                  k0=len(kf_a.mask), k1=len(mask_b),
+                  valid0=int(np.count_nonzero(kf_a.mask)),
+                  valid1=int(np.count_nonzero(mask_b)),
+                  layers=self.lightglue.model.num_layers):
+            tracer.counter("visual", lightglue_pairs=1)
             idx1, valid = self.lightglue.match(
                 kf_a.descriptors, kf_a.keypoints, kf_a.mask,
                 desc_b, xy_b, mask_b,
@@ -683,6 +695,15 @@ class StereoHandler(RGBDHandler):
             return
         self.add_sensor_data(lm, _RightImage(rm), self.camera_model, pose)
 
+    def send_keyframe(self, kf: LocalKeyframe, image):
+        """Publish the keyframe with its left image in 8 bits: a validated
+        image is float in [0, 1], and KeyframeRGB carries uint8 (a float
+        image cast as it is would read 0 everywhere)."""
+        img = np.asarray(image)
+        if np.issubdtype(img.dtype, np.floating):
+            img = np.clip(np.rint(img * 255.0), 0, 255).astype(np.uint8)
+        super().send_keyframe(kf, img)
+
     # -- keypoint depth from stereo matching ---------------------------
     def compute_local_descriptors(self, image, right,
                                   intrinsics: CameraIntrinsics):
@@ -702,18 +723,21 @@ class StereoHandler(RGBDHandler):
             else:
                 xy, desc, _, mask = features.extract_features(
                     img, max_keypoints=self.max_keypoints)
-        disparity, dvalid = stereo_ops.stereo_correspondences(
-            img, self._dev(right.data), xy, mask,
-            max_disparity=self.max_disparity, min_zncc=self.min_zncc)
-        z = stereo_ops.depth_from_disparity(
-            disparity, dvalid, intrinsics.fx, intrinsics.baseline)
-        host = torch.cat([xy, desc, mask[:, None], dvalid[:, None],
-                          z[:, None]], dim=1).cpu().numpy()
-        self.log_host_copies += 1
+            host = torch.cat([xy, desc, mask[:, None]], dim=1).cpu().numpy()
+        feat_mask = np.ascontiguousarray(host[:, -1])
+        tracer.counter("visual", frames=1,
+                       keypoints=int(np.count_nonzero(feat_mask)))
+        with span("stereo_depth", robot=self.robot_id):
+            disparity, dvalid = stereo_ops.stereo_correspondences(
+                img, self._dev(right.data), xy, mask,
+                max_disparity=self.max_disparity, min_zncc=self.min_zncc)
+            z = stereo_ops.depth_from_disparity(
+                disparity, dvalid, intrinsics.fx, intrinsics.baseline)
+            depth = torch.stack([dvalid, z], dim=1).cpu().numpy()
+        self.log_host_copies += 2
         xy = np.ascontiguousarray(host[:, :2])
-        desc = np.ascontiguousarray(host[:, 2:-3])
-        feat_mask = np.ascontiguousarray(host[:, -3])
-        mask = feat_mask * host[:, -2]
-        pts3d = self._backproject(xy, np.ascontiguousarray(host[:, -1]),
+        desc = np.ascontiguousarray(host[:, 2:-1])
+        mask = feat_mask * depth[:, 0]
+        pts3d = self._backproject(xy, np.ascontiguousarray(depth[:, 1]),
                                   intrinsics)
         return xy, desc, pts3d, mask.astype(np.float32), feat_mask

@@ -29,7 +29,7 @@ from torch import nn
 from cslam_tpu_torch.device import DeviceLike, require_full_fp32, \
     resolve_device
 from cslam_tpu_torch.models import convert, zoo
-from cslam_tpu_torch.runtime.tracing import span
+from cslam_tpu_torch.runtime.tracing import span, tracer
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], dtype=np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], dtype=np.float32)
@@ -312,12 +312,15 @@ class CosPlace:
                      self.device)[0]
 
     def compute_embeddings_batch(self, images: np.ndarray) -> np.ndarray:
-        """Batched descriptors: one forward over all pending keyframes."""
+        """Batched descriptors: one forward over all pending keyframes.
+        Counter `visual.cosplace_images` adds the images of each batch
+        the network embeds."""
         if not self.enabled:
             v = self._rng.standard_normal(
                 (len(images), self.fc_output_dim))
             return (v / np.linalg.norm(v, axis=1, keepdims=True)).astype(
                 np.float32)
+        tracer.counter("visual", cosplace_images=len(images))
         with span("descriptor_preprocess", images=len(images)):
             batch = preprocess(images, self.crop_size)
         with span("descriptor_forward", images=len(batch)):

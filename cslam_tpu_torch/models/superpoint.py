@@ -16,6 +16,12 @@ and returns the reference's NHWC layout.
 `extract` keeps the reference's contract (xy, desc, scores, mask) and
 its tie rule: the keypoints are the top-k of the NMS'd heatmap with the
 lower pixel index first among equal scores (`ops/features.top_k`).
+The heatmap covers the image's floored multiple of 8 in each axis (the
+network pools by 8), and keypoints are decoded with that width, so they
+stay inside it, as the official extractor keeps them; the JAX package
+decodes with the image's width, which shifts a keypoint of row y by y
+pixels wherever the width is not a multiple of 8. Host spans
+`superpoint_forward` and `keypoint_select` time the two stages.
 """
 
 from typing import Optional
@@ -31,6 +37,7 @@ from cslam_tpu_torch.models import convert
 from cslam_tpu_torch.models.cosplace import Conv, flax_init_, \
     load_flat_weights
 from cslam_tpu_torch.ops.features import nms_max_pool, top_k
+from cslam_tpu_torch.runtime.tracing import span
 
 ENCODER = (("conv1a", "conv1b"), ("conv2a", "conv2b"),
            ("conv3a", "conv3b"), ("conv4a", "conv4b"))
@@ -88,23 +95,26 @@ def extract(model: SuperPointNet, image, max_keypoints=256, nms_radius=4,
     Returns (xy (K, 2), desc (K, D), scores (K,), mask (K,)), the
     contract of ops/features.extract_features."""
     H, W = image.shape
-    with torch.no_grad():
-        det, desc_map = model(image[None, :, :, None])
-    heat = _cell_scores_to_heatmap(det)[0, :H, :W]
-    pooled = nms_max_pool(heat, nms_radius)
-    is_max = (heat >= pooled) & (heat > score_threshold)
-    scores_flat = torch.where(is_max, heat, torch.full_like(
-        heat, -torch.inf)).reshape(-1)
-    top_scores, top_idx = top_k(scores_flat, max_keypoints)
-    yy = top_idx // W
-    xx = top_idx % W
-    mask = (top_scores > -torch.inf).to(torch.float32)
-    xy = torch.stack([xx, yy], dim=-1).to(torch.float32)
-    cy = torch.clamp(yy // 8, 0, desc_map.shape[1] - 1)
-    cx = torch.clamp(xx // 8, 0, desc_map.shape[2] - 1)
-    desc = desc_map[0, cy, cx]
-    desc = desc / torch.clamp(torch.linalg.vector_norm(
-        desc, dim=-1, keepdim=True), min=1e-12)
+    with span("superpoint_forward", height=H, width=W):
+        with torch.no_grad():
+            det, desc_map = model(image[None, :, :, None])
+    with span("keypoint_select", k=max_keypoints):
+        heat = _cell_scores_to_heatmap(det)[0, :H, :W]
+        width = heat.shape[1]
+        pooled = nms_max_pool(heat, nms_radius)
+        is_max = (heat >= pooled) & (heat > score_threshold)
+        scores_flat = torch.where(is_max, heat, torch.full_like(
+            heat, -torch.inf)).reshape(-1)
+        top_scores, top_idx = top_k(scores_flat, max_keypoints)
+        yy = top_idx // width
+        xx = top_idx % width
+        mask = (top_scores > -torch.inf).to(torch.float32)
+        xy = torch.stack([xx, yy], dim=-1).to(torch.float32)
+        cy = torch.clamp(yy // 8, 0, desc_map.shape[1] - 1)
+        cx = torch.clamp(xx // 8, 0, desc_map.shape[2] - 1)
+        desc = desc_map[0, cy, cx]
+        desc = desc / torch.clamp(torch.linalg.vector_norm(
+            desc, dim=-1, keepdim=True), min=1e-12)
     return xy, desc * mask[:, None], torch.where(
         mask > 0, top_scores, torch.zeros_like(top_scores)), mask
 
