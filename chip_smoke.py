@@ -18,7 +18,11 @@ Phases, each printing one JSON line with its own elapsed_s:
      call, and the search's host wall time per call; then the
      small-dense kernel (MAC's LOBPCG eigh, QR and SVD) at LOBPCG's
      shapes against its plain float64 version, and its CUDA-event times
-     against the plain version's and torch.linalg's in float32;
+     against the plain version's and torch.linalg's in float32; then
+     `knn_host`: the host microseconds of one DescriptorDatabase search
+     and add at the sim cells' shape, the torch path against the
+     single-call search with the GIL released and held, alone and
+     beside a thread of solve-like small CUDA ops (time_knn_host);
   4. slice: the device path at map scale — 4 robots x 1000 keyframes,
      512-d descriptors: kNN ingestion through the f32 kernel, 2 rounds
      of MAC selection (matrix-free Fiedler path, P = 4096), GNC-LM PGO;
@@ -170,8 +174,8 @@ then the kernels line, the card line, and the result line.
 runs phases 1, 2, the slice (for its pose graph) and 17 alone, then the
 card line and the result line; with two cards or more, phase 17 runs
 only the NCCL mesh of one rank per card (the one-card meshes are the
-whole script's). `--only training` and `--only tooling` run phases 1, 2
-and that phase.
+whole script's). `--only training`, `--only tooling` and `--only
+knn_host` run phases 1, 2 and that phase.
 
 Exits non-zero, printing no result, without a CUDA card, without the
 package, or when any phase fails. Uses no JAX.
@@ -600,6 +604,129 @@ def timing_row(kp, inputs, shape, dtype, err, iters):
             "ms": ms, "kernel_device_ms": device_ms, "host_ms": host_ms,
             "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
             "bound_by": bound_by}
+
+
+# the matching layer's host path at the sim cells' shape (D = 512, f32,
+# B = 1, k = 1, ~372 valid rows): calls of each variant per round, rounds
+KNN_HOST = dict(dim=512, rows=372, calls=250, rounds=8, adds=48)
+
+
+def _solve_like(stop, ops):
+    """What the back-end's solve thread does to the host: small torch
+    ops on the legacy default stream, each a GIL release, and a host
+    read now and then; counts the ops it got through."""
+    x = torch.ones(64, device="cuda")
+    while not stop.is_set():
+        for _ in range(50):
+            x = x * 1.0001 + 1e-6
+            ops[0] += 1
+        float(x[0])
+        ops[0] += 1
+
+
+def _percentiles_us(times):
+    q = np.percentile(np.asarray(times) * 1e6, [50, 90])
+    return {"p50": float(q[0]), "p90": float(q[1])}
+
+
+def time_knn_host(card):
+    """Host microseconds of one descriptor search and one add as the sim
+    cells issue them, the torch path against the single-call search
+    (the GIL released for the call, as ctypes.CDLL does, and
+    held, as ctypes.PyDLL does), alone and beside a thread of solve-like
+    small CUDA ops; the variants interleave in rounds. Also the
+    competing thread's ops per second beside each variant."""
+    from cslam_tpu_torch import _build
+    from cslam_tpu_torch.matching.descriptor_db import DescriptorDatabase
+    from cslam_tpu_torch.ops import knn_pallas as kp
+
+    cfg = KNN_HOST
+    rng = np.random.default_rng(SEED)
+    db = DescriptorDatabase(dim=cfg["dim"], device="cuda")
+    for i in range(cfg["rows"]):
+        db.add_item(rng.standard_normal(cfg["dim"]), i)
+    queries = rng.standard_normal((64, cfg["dim"])).astype(np.float32)
+    cards = {}
+    for hold in (False, True):
+        cards[hold] = kp.CardSearch(db._stream, torch.float32, cfg["dim"])
+        cards[hold]._fn = _build.load_library(hold).cosine_topk_search_sync
+        cards[hold].bind(db._data, db._norms, db._stage, db._stage_norms)
+
+    def old_search(q):
+        return db._search_torch(q.reshape(1, -1), 1, 1)
+
+    def new_search(hold):
+        def search(q):
+            db._card = cards[hold]
+            return db._search(q, 1)
+        return search
+
+    searches = {"torch_path": old_search, "single_call_gil_released":
+                new_search(False), "single_call_gil_held": new_search(True)}
+    ref = old_search(queries[0])
+    for name, fn in searches.items():  # warm, and the same answer
+        got = fn(queries[0])
+        if not (np.array_equal(got[0], ref[0]) and
+                np.array_equal(got[1].view(np.int32), ref[1].view(np.int32))):
+            raise AssertionError(f"{name} answers otherwise: {got} {ref}")
+
+    # an add through torch ops, as before staging: a pageable upload of
+    # the row, the norm written from a Python float (a buffer of its
+    # own, the same shape)
+    old_data = torch.zeros((1024, cfg["dim"]), device="cuda")
+    old_norms = torch.zeros(1024, device="cuda")
+
+    def old_add(v, i):
+        row = torch.from_numpy(v).to(torch.float32)
+        norm = float(np.linalg.norm(row.float().numpy()))
+        old_data[i] = torch.as_tensor(row, device="cuda")
+        old_norms[i] = norm
+
+    adds = {"torch_path": old_add,
+            "staged": lambda v, i: db.add_item(v, cfg["rows"] + i)}
+    res = {}
+    for setting in ("alone", "beside_solve_thread"):
+        stop, ops = threading.Event(), [0]
+        other = None
+        if setting != "alone":
+            other = threading.Thread(target=_solve_like, args=(stop, ops),
+                                     daemon=True)
+            other.start()
+            time.sleep(0.2)
+        times = {name: [] for name in searches}
+        add_times = {name: [] for name in adds}
+        rate = {name: [] for name in searches}
+        for _ in range(cfg["rounds"]):
+            for name, fn in searches.items():
+                ops0, t_round = ops[0], time.perf_counter()
+                for j in range(cfg["calls"]):
+                    q = queries[j % len(queries)]
+                    t = time.perf_counter()
+                    fn(q)
+                    times[name].append(time.perf_counter() - t)
+                rate[name].append((ops[0] - ops0) /
+                                  (time.perf_counter() - t_round))
+            for name, fn in adds.items():
+                for i in range(cfg["adds"]):
+                    v = rng.standard_normal(cfg["dim"]).astype(np.float32)
+                    t = time.perf_counter()
+                    fn(v, i)
+                    add_times[name].append(time.perf_counter() - t)
+                db.n, db._flushed = cfg["rows"], cfg["rows"]  # drop them
+                torch.cuda.synchronize()
+        stop.set()
+        if other is not None:
+            other.join()
+        res[setting] = {
+            "search_us": {n: _percentiles_us(t) for n, t in times.items()},
+            "add_us": {n: _percentiles_us(t) for n, t in add_times.items()},
+        }
+        if other is not None:
+            res[setting]["solve_thread_ops_per_s"] = {
+                n: float(np.median(r)) for n, r in rate.items()}
+    return {"shape": {k: cfg[k] for k in ("dim", "rows")},
+            "calls_per_variant": cfg["calls"] * cfg["rounds"],
+            "hold_gil": kp.HOLD_GIL, "card": card, **res}
 
 
 # the small-dense kernel at LOBPCG's shapes (block k = 4): the
@@ -3785,7 +3912,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description="Smoke run of the port "
                                      "on the card(s); see the docstring.")
     parser.add_argument("--only", choices=["multichip", "training",
-                                           "tooling"], default=None,
+                                           "tooling", "knn_host"],
+                        default=None,
                         help="run the device and build phases and this "
                              "phase alone (multichip: with the slice, for "
                              "its pose graph)")
@@ -3831,12 +3959,14 @@ def main(argv=None):
         raise AssertionError("the bf16 kernel has no HMMA instruction")
     if hmma_f32:
         raise AssertionError("the f32 kernel uses the tensor cores")
-    if args.only in ("training", "tooling"):
+    if args.only in ("training", "tooling", "knn_host"):
         t0 = time.perf_counter()
         if args.only == "training":
             phase("training", t0, **run_training_phase("cuda"))
-        else:
+        elif args.only == "tooling":
             phase("tooling", t0, **run_tooling_phase("cuda"))
+        else:
+            phase("knn_host", t0, **time_knn_host(card))
         emit({"total_elapsed_s": round(time.perf_counter() - T_START, 3)})
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -3923,6 +4053,8 @@ def main(argv=None):
           max_abs_err=worst,
           timing=timing, small_dense_max_err=small_err,
           small_dense_timing=small_timing, card=card)
+    t0 = time.perf_counter()
+    phase("knn_host", t0, **time_knn_host(card))
 
     # 4. the slice at map scale (f32 storage: the f32 kernel)
     t0 = time.perf_counter()

@@ -87,6 +87,10 @@
 //   - about ten small torch ops per search for normalization, inverse
 //     norms and a bias row: done inside the kernel (masking by n_valid
 //     replaces the bias row).
+// Host entry points: cosine_topk_launch (one pass, queued on the
+// caller's stream) and cosine_topk_search_sync (one search of a
+// database in one call: its staged rows, the query's upload, one pass,
+// the results' copy back and a synchronize of its own stream).
 // What it still leaves: no TMA and no wgmma (mma.sync reaches a part of
 // the tensor-core peak only), and every query block re-reads its rows
 // and every tile its queries through L2 (about 6x the HBM bytes at the
@@ -101,6 +105,7 @@
 #include <cuda_bf16.h>
 #include <math_constants.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -947,26 +952,20 @@ cudaError_t launch(size_t max_bytes, dim3 grid, int threads, size_t bytes,
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// Plain C entry point for ctypes: one pass of width kp over the queries.
-// dtype: 0 = float32, 1 = bfloat16. qb: queries per block (4 or 32 for
-// float32; 16 or 64 for bfloat16). qn holds B * D elements of the data
-// dtype; cand_* hold B * splits * kp entries (unused when splits == 1);
-// tickets 3 * ceil(B / qb) zeroed counters. Launches on `stream`, does not
-// synchronize, returns the launch's cudaError_t.
-extern "C" int cosine_topk_launch(
-    const void* data, int dtype, const float* norms, const float* queries,
-    void* qn, int n_valid, int D, int B, int qb, int kp, int splits,
-    int rows_per_split, const float* after_v, const int* after_i,
-    int ld_after, float* cand_v, int* cand_i, unsigned* tickets,
-    float* out_v, int* out_i, int ld_out, void* stream) {
+// One pass of width kp over the queries on `st` (see cosine_topk_launch).
+cudaError_t launch_pass(const void* data, int dtype, const float* norms,
+                        const float* queries, void* qn, int n_valid, int D,
+                        int B, int qb, int kp, int splits,
+                        int rows_per_split, const float* after_v,
+                        const int* after_i, int ld_after, float* cand_v,
+                        int* cand_i, unsigned* tickets, float* out_v,
+                        int* out_i, int ld_out, cudaStream_t st) {
   const bool qb_ok = dtype == 0 ? qb == G_QB || qb == F_QB
                                 : dtype == 1 && (qb == 16 || qb == 64);
   if (!qb_ok || kp < 1 || kp > KMAX || splits < 1 || splits > MAX_SPLITS ||
       B < 1 || D < 1 || n_valid < 0 || rows_per_split < 1 ||
       ld_out < kp || ((after_v == nullptr) != (after_i == nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
+    return cudaErrorInvalidValue;
   Args a;
   a.data = data;
   a.norms = norms;
@@ -990,20 +989,99 @@ extern "C" int cosine_topk_launch(
   a.vec = D % (dtype == 0 ? 4 : 8) == 0 &&
           reinterpret_cast<uintptr_t>(data) % 16 == 0 &&
           reinterpret_cast<uintptr_t>(qn) % 16 == 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   dim3 grid((B + qb - 1) / qb, splits);
-  cudaError_t err;
   if (dtype == 0 && qb == G_QB)
-    err = launch<topk_f32_gemv>(gemv_smem_bytes(KMAX), grid, G_NT,
-                                gemv_smem_bytes(kp), st, a);
-  else if (dtype == 0)
-    err = launch<topk_f32>(f32_smem_bytes(KMAX), grid, F_NT,
-                           f32_smem_bytes(kp), st, a);
-  else if (qb == 16)
-    err = launch<topk_bf16_mma<1, 1>>(mma_smem_bytes<16>(KMAX), grid, 128,
-                                      mma_smem_bytes<16>(kp), st, a);
-  else
-    err = launch<topk_bf16_mma<2, 2>>(mma_smem_bytes<64>(KMAX), grid, 256,
-                                      mma_smem_bytes<64>(kp), st, a);
-  return static_cast<int>(err);
+    return launch<topk_f32_gemv>(gemv_smem_bytes(KMAX), grid, G_NT,
+                                 gemv_smem_bytes(kp), st, a);
+  if (dtype == 0)
+    return launch<topk_f32>(f32_smem_bytes(KMAX), grid, F_NT,
+                            f32_smem_bytes(kp), st, a);
+  if (qb == 16)
+    return launch<topk_bf16_mma<1, 1>>(mma_smem_bytes<16>(KMAX), grid, 128,
+                                       mma_smem_bytes<16>(kp), st, a);
+  return launch<topk_bf16_mma<2, 2>>(mma_smem_bytes<64>(KMAX), grid, 256,
+                                     mma_smem_bytes<64>(kp), st, a);
+}
+
+}  // namespace
+
+// Plain C entry point for ctypes: one pass of width kp over the queries.
+// dtype: 0 = float32, 1 = bfloat16. qb: queries per block (4 or 32 for
+// float32; 16 or 64 for bfloat16). qn holds B * D elements of the data
+// dtype; cand_* hold B * splits * kp entries (unused when splits == 1);
+// tickets 3 * ceil(B / qb) zeroed counters. Launches on `stream`, does not
+// synchronize, returns the launch's cudaError_t.
+extern "C" int cosine_topk_launch(
+    const void* data, int dtype, const float* norms, const float* queries,
+    void* qn, int n_valid, int D, int B, int qb, int kp, int splits,
+    int rows_per_split, const float* after_v, const int* after_i,
+    int ld_after, float* cand_v, int* cand_i, unsigned* tickets,
+    float* out_v, int* out_i, int ld_out, void* stream) {
+  return static_cast<int>(launch_pass(
+      data, dtype, norms, queries, qn, n_valid, D, B, qb, kp, splits,
+      rows_per_split, after_v, after_i, ld_after, cand_v, cand_i, tickets,
+      out_v, out_i, ld_out, static_cast<cudaStream_t>(stream)));
+}
+
+// One search of width kp <= KMAX as a database issues it, in one call
+// from the host: the rows added since the last upload, the query, one
+// pass of the kernel (the grid of cosine_topk_launch), the results back
+// to the host, and a synchronize of `stream` alone. Every field is 8
+// bytes (the Python side mirrors the layout in knn_pallas.SearchCall).
+struct SearchCall {
+  int64_t dtype, D, n_valid, B, qb, kp, splits, rows_per_split;
+  int64_t row0, n_rows;     // pending rows: they go to rows row0 ...
+  const void* stage_rows;   // pinned host, n_rows x D of the data dtype
+  const float* stage_norms; // pinned host, their n_rows float32 norms
+  const float* query;       // the caller's host (B, D) float32 queries
+  float* query_pinned;      // pinned host slot, B x D
+  float* query_dev;         // device copy of the queries
+  void* data;               // (N_cap, D) data dtype, device
+  float* norms;             // (N_cap,) float32, device
+  void* qn;                 // kernel workspaces (cosine_topk_launch)
+  float* cand_v;
+  int* cand_i;
+  unsigned* tickets;
+  int* out_dev;             // device (B, kp) rows, then (B, kp) sims' bits
+  int* out_host;            // pinned host, the same 2 * B * kp words
+  void* stream;             // the caller's own cudaStream_t
+};
+
+// Returns a cudaError_t: of the first failed step, else of the synchronize.
+extern "C" int cosine_topk_search_sync(const SearchCall* c) {
+  if (c->B < 1 || c->D < 1 || c->kp < 1 || c->kp > KMAX || c->n_rows < 0 ||
+      (c->dtype != 0 && c->dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(c->stream);
+  const size_t es = c->dtype == 0 ? 4 : 2;
+  cudaError_t err = cudaSuccess;
+  if (c->n_rows > 0) {
+    err = cudaMemcpyAsync(
+        static_cast<char*>(c->data) + (size_t)c->row0 * c->D * es,
+        c->stage_rows, (size_t)c->n_rows * c->D * es,
+        cudaMemcpyHostToDevice, st);
+    if (err == cudaSuccess)
+      err = cudaMemcpyAsync(c->norms + c->row0, c->stage_norms,
+                            (size_t)c->n_rows * sizeof(float),
+                            cudaMemcpyHostToDevice, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const size_t q_bytes = (size_t)c->B * c->D * sizeof(float);
+  memcpy(c->query_pinned, c->query, q_bytes);
+  err = cudaMemcpyAsync(c->query_dev, c->query_pinned, q_bytes,
+                        cudaMemcpyHostToDevice, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int B = (int)c->B, kp = (int)c->kp;
+  err = launch_pass(c->data, (int)c->dtype, c->norms, c->query_dev, c->qn,
+                    (int)c->n_valid, (int)c->D, B, (int)c->qb, kp,
+                    (int)c->splits, (int)c->rows_per_split, nullptr, nullptr,
+                    0, c->cand_v, c->cand_i, c->tickets,
+                    reinterpret_cast<float*>(c->out_dev + (size_t)B * kp),
+                    c->out_dev, kp, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaMemcpyAsync(c->out_host, c->out_dev,
+                        2 * (size_t)B * kp * sizeof(int),
+                        cudaMemcpyDeviceToHost, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaStreamSynchronize(st));
 }

@@ -9,7 +9,6 @@ can be fed to both packages.
 from typing import Any, Mapping
 
 import numpy as np
-import torch
 
 from cslam_tpu_torch.backend.factor_graph import (BetweenFactor, FactorGraph,
                                                   GraphArrays,
@@ -32,12 +31,8 @@ def descriptor_database_from_numpy(data, norms, n: int,
     storage = "bfloat16" if data.dtype.name == "bfloat16" else "float32"
     db = DescriptorDatabase(dim=data.shape[1], capacity=data.shape[0],
                             method=method, storage=storage, device=device)
-    db._data = torch.from_numpy(data.astype(np.float32)).to(
-        db.device).to(db._dtype)
-    db._norms = torch.from_numpy(np.asarray(norms, np.float32).copy()).to(
-        db.device)
-    db.n = int(n)
-    db.items = dict(items)
+    db._adopt(data.astype(np.float32), np.asarray(norms, np.float32).copy(),
+              n, items)
     return db
 
 

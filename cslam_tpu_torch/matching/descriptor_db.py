@@ -4,11 +4,32 @@ Port of cslam_tpu/matching/descriptor_db.py: add_item / search /
 search_best / batch_search with the same return semantics (items sorted
 by descending cosine similarity; min(k, n) results), a fixed-capacity
 device buffer whose capacity doubles, and row norms kept in f32 from the
-values as stored. Host spans (`runtime/tracing.span`): `knn_add` per
-add, `knn_search` per search from the query's upload to the host copy
-of its results.
+values as stored.
+
+Adds are staged: `add_item` writes the row, rounded to the storage
+dtype, and its norm into host staging buffers (pinned on a CUDA card)
+and issues no device work. The next read of the device buffer (a
+search, `data`, capacity growth, or a full stage) uploads every
+pending row in one copy. On a CUDA database searched by the kernel
+("pallas"), a search of k <= KMAX is one native call on the database's
+own non-blocking stream (`knn_pallas.CardSearch`): the pending rows, the
+query, one pass of the kernel, the results back to the host, and a
+synchronize of that stream alone. Every other search (a CPU database,
+"exact" or "approx", k > KMAX) uploads the pending rows, then runs
+torch ops on the current stream. The answers of the two paths are the
+same bits: the same kernel, grid, inputs and norms.
+
+A database is used by one thread at a time: its staging buffers,
+workspaces and stream are not locked.
+
+Host spans (`runtime/tracing.span`): `knn_add` per add, `knn_search` per
+search from the query's upload (with the pending rows' before it) to
+the host copy of its results. Counter `knn`: `native_searches` (served
+by the single call), `fallback_searches` (torch ops), `flushes` and
+`flushed_rows` (uploads of pending rows, and their rows).
 """
 
+import contextlib
 from typing import Any, Dict, List, Tuple
 
 import numpy as np
@@ -16,10 +37,22 @@ import torch
 
 from cslam_tpu_torch.device import DeviceLike, resolve_device
 from cslam_tpu_torch.ops import knn
-from cslam_tpu_torch.runtime.tracing import span
+from cslam_tpu_torch.ops.knn_pallas import KMAX, CardSearch
+from cslam_tpu_torch.runtime.tracing import span, tracer
 
 _INITIAL_CAPACITY = 1024
+_STAGE_ROWS = 64  # pending rows a database holds before it uploads them
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def bf16_bits(v: np.ndarray) -> np.ndarray:
+    """float32 -> bfloat16 bit patterns (uint16), rounded to nearest even
+    as torch rounds; NaN becomes a quiet NaN."""
+    u = v.view(np.uint32)
+    bits = ((u + (np.uint32(0x7FFF) + ((u >> 16) & 1))) >> 16).astype(
+        np.uint16)
+    bits[np.isnan(v)] = 0x7FC0
+    return bits
 
 
 def _to_host(idx, sims, k_eff: int):
@@ -62,6 +95,10 @@ class DescriptorDatabase:
         self._capacity = capacity
         self._data = None
         self._norms = None
+        self._flushed = 0  # rows on the device; n - _flushed are staged
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+        self._card = None  # the single-call search, on the card
         if dim is not None:
             self._alloc(dim)
 
@@ -74,19 +111,93 @@ class DescriptorDatabase:
               else knn.cosine_topk_approx)
         return fn(self._data, self.n, queries, k, data_norms=self._norms)
 
+    def _on_stream(self):
+        """Device work of the database's own goes on its stream."""
+        return (contextlib.nullcontext() if self._stream is None
+                else torch.cuda.stream(self._stream))
+
+    def _sync(self):
+        """Wait for the database's stream: every device write it issued
+        has landed and its staging buffers are free again."""
+        if self._stream is not None:
+            self._stream.synchronize()
+
     def _alloc(self, dim: int):
         self.dim = dim
-        self._data = torch.zeros((self._capacity, dim), dtype=self._dtype,
-                                 device=self.device)
-        self._norms = torch.zeros((self._capacity,), dtype=torch.float32,
-                                  device=self.device)
+        with self._on_stream():
+            self._data = torch.zeros((self._capacity, dim),
+                                     dtype=self._dtype, device=self.device)
+            self._norms = torch.zeros((self._capacity,), dtype=torch.float32,
+                                      device=self.device)
+        pin = self._stream is not None
+        self._stage = torch.empty((_STAGE_ROWS, dim), dtype=self._dtype,
+                                  pin_memory=pin)
+        self._stage_norms = torch.empty((_STAGE_ROWS,), dtype=torch.float32,
+                                        pin_memory=pin)
+        self._stage_np = (self._stage.numpy()
+                          if self._dtype == torch.float32 else
+                          self._stage.view(torch.int16).numpy().view(
+                              np.uint16))
+        self._stage_norms_np = self._stage_norms.numpy()
+        if pin and self.method == "pallas":
+            self._card = CardSearch(self._stream, self._dtype, dim)
+        self._sync()
+        self._bind()
+
+    def _bind(self):
+        if self._card is not None:
+            self._card.bind(self._data, self._norms, self._stage,
+                            self._stage_norms)
+
+    def _adopt(self, data: np.ndarray, norms: np.ndarray, n: int,
+               items: Dict[int, Any]):
+        """Take a padded (capacity, dim) buffer of float32 values, its
+        (capacity,) norms, n valid rows and their items, all uploaded."""
+        with self._on_stream():
+            self._data = torch.from_numpy(data).to(self.device).to(
+                self._dtype)
+            self._norms = torch.from_numpy(norms).to(self.device)
+        self._sync()
+        self._capacity = self._data.shape[0]
+        self.n = self._flushed = int(n)
+        self.items = dict(items)
+        self._bind()
+
+    def _flush(self):
+        """Upload the staged rows and norms (one copy each) and wait."""
+        rows = self.n - self._flushed
+        if not rows:
+            return
+        f = self._flushed
+        with self._on_stream():
+            self._data[f:self.n].copy_(self._stage[:rows], non_blocking=True)
+            self._norms[f:self.n].copy_(self._stage_norms[:rows],
+                                        non_blocking=True)
+        self._sync()
+        self._flushed = self.n
+        tracer.counter("knn", flushes=1, flushed_rows=rows)
+
+    def _grow(self):
+        """Double the capacity, pending rows uploaded first."""
+        self._flush()
+        self._capacity *= 2
+        with self._on_stream():
+            self._data = knn.grow(self._data, self._capacity)
+            self._norms = torch.cat(
+                [self._norms, torch.zeros((self._capacity // 2,),
+                                          dtype=torch.float32,
+                                          device=self.device)])
+        self._sync()
+        self._bind()
 
     def __len__(self):
         return self.n
 
     @property
     def data(self):
-        """Device tensor view (including padding rows)."""
+        """Device tensor view (including padding rows), every added row
+        uploaded."""
+        self._flush()
         return self._data
 
     def add_item(self, vector, item):
@@ -99,27 +210,48 @@ class DescriptorDatabase:
                 raise ValueError(f"descriptor dim {vector.shape[0]} != "
                                  f"database dim {self.dim}")
             if self.n >= self._capacity:
-                self._capacity *= 2
-                self._data = knn.grow(self._data, self._capacity)
-                self._norms = torch.cat(
-                    [self._norms, torch.zeros((self._capacity // 2,),
-                                              dtype=torch.float32,
-                                              device=self.device)])
-            row = torch.from_numpy(vector).to(self._dtype)
+                self._grow()
+            elif self.n - self._flushed == _STAGE_ROWS:
+                self._flush()
+            j = self.n - self._flushed
+            if self._dtype == torch.float32:
+                self._stage_np[j] = stored = vector
+            else:
+                bits = bf16_bits(vector)
+                self._stage_np[j] = bits
+                stored = (bits.astype(np.uint32) << 16).view(np.float32)
             # norm of the values as stored (bf16-rounded when applicable)
-            norm = float(np.linalg.norm(row.float().numpy()))
-            knn.set_row(self._data, self.n, row)
-            self._norms[self.n] = norm
+            self._stage_norms_np[j] = np.linalg.norm(stored)
             self.items[self.n] = item
             self.n += 1
 
     def _search(self, queries, k: int):
         """Host (B, min(k, n)) indices and sims of a non-empty database."""
-        q = np.asarray(queries, dtype=np.float32).reshape(-1, self.dim)
+        q = np.ascontiguousarray(
+            np.asarray(queries, dtype=np.float32).reshape(-1, self.dim))
+        k_eff, kp = min(k, self.n), min(k, self._capacity)
+        rows = self.n - self._flushed
+        native = self._card is not None and kp <= KMAX
         with span("knn_search", rows=self.n, batch=q.shape[0], k=k):
-            return _to_host(*self._topk(torch.from_numpy(q).to(self.device),
-                                        min(k, self._capacity)),
-                            min(k, self.n))
+            if native:
+                idx, sims = self._card.search(q, self.n, kp, self._flushed,
+                                              rows)
+                self._flushed = self.n
+                out = idx[:, :k_eff].copy(), sims[:, :k_eff].copy()
+            else:
+                out = self._search_torch(q, kp, k_eff)
+        if native:
+            tracer.counter("knn", native_searches=1, flushes=int(rows > 0),
+                           flushed_rows=rows)
+        else:
+            tracer.counter("knn", fallback_searches=1)
+        return out
+
+    def _search_torch(self, q: np.ndarray, kp: int, k_eff: int):
+        """The search in torch ops on the current stream."""
+        self._flush()
+        return _to_host(*self._topk(torch.from_numpy(q).to(self.device),
+                                    kp), k_eff)
 
     def search(self, query, k: int) -> Tuple[List[Any], np.ndarray]:
         """k nearest items by cosine similarity, descending.

@@ -120,13 +120,6 @@ def cosine_topk_approx(data, n_valid, queries, k: int, data_norms=None,
     return cosine_topk(data, n_valid, queries, k, data_norms=data_norms)
 
 
-def set_row(data, row: int, vector):
-    """Write one database row IN PLACE (the reference donates the buffer
-    to the same effect) and return the buffer."""
-    data[row] = torch.as_tensor(vector, device=data.device).to(data.dtype)
-    return data
-
-
 def grow(data, new_capacity: int):
     """Copy into a larger zero-padded buffer (capacity doubling)."""
     pad = new_capacity - data.shape[0]

@@ -16,10 +16,16 @@ ceil(k / KMAX) launches chained by `topk_in_passes`. On a CPU tensor it
 runs `prepare_inputs` and `cosine_topk_plain`, the plain version of the
 same function. There is no fall-back between the two: the device of the
 data decides.
+
+`CardSearch` serves one database's searches of k <= KMAX on the card in
+one native call each (`cosine_topk_search_sync`): the rows added since
+the last upload, the query, the same pass of the same kernel, and the
+results back into pinned host memory, on a stream of the database's own.
 """
 
 import ctypes
 
+import numpy as np
 import torch
 
 from cslam_tpu_torch.ops.knn import topk_desc
@@ -249,3 +255,121 @@ def cosine_topk_pallas(data, n_valid, queries, k: int, tile_rows=None,
 
 
 cosine_topk_pallas.launches = dict.fromkeys(KERNELS.values(), 0)
+
+
+# The single-call search keeps the GIL through its call (ctypes.PyDLL,
+# see _build.load_library). The call lasts ~40 us; a thread that gives
+# the GIL up for it waits to take it back behind a thread of small torch
+# ops (the back-end's solve). On an H100 beside such a thread a search
+# took 45 / 53 us (p50 / p90) held against 100 / 198 us released, and
+# the sim cells ran more keyframes a second with a lower map latency
+# held than released (`chip_smoke.py --only knn_host`, PERF.md).
+HOLD_GIL = True
+
+
+class SearchCall(ctypes.Structure):
+    """`SearchCall` of csrc/cosine_topk.cu, field for field."""
+
+    _fields_ = ([(name, ctypes.c_int64) for name in (
+        "dtype", "D", "n_valid", "B", "qb", "kp", "splits",
+        "rows_per_split", "row0", "n_rows")] +
+        [(name, ctypes.c_void_p) for name in (
+            "stage_rows", "stage_norms", "query", "query_pinned",
+            "query_dev", "data", "norms", "qn", "cand_v", "cand_i",
+            "tickets", "out_dev", "out_host", "stream")])
+
+
+class CardSearch:
+    """One database's searches of width <= KMAX on the card, each one
+    native call on `stream` (a non-blocking stream of the caller's, so
+    its synchronize never waits for the legacy default stream).
+
+    The workspaces (kernel scratch, the query's device and pinned host
+    copies, the results' device and pinned host copies) belong to this
+    object and grow with the batch and the split lists; `bind` points
+    the call at the database's buffers and its staging rows after every
+    reallocation. Not thread-safe: one thread at a time."""
+
+    def __init__(self, stream, dtype, dim: int):
+        from cslam_tpu_torch import _build
+
+        if dtype not in KERNELS:
+            raise TypeError(f"cosine_topk kernel takes float32 or bfloat16 "
+                            f"data, got {dtype}")
+        self._fn = _build.load_library(HOLD_GIL).cosine_topk_search_sync
+        self.stream = stream
+        self.device = stream.device
+        self._dtype = dtype
+        self._kernel = KERNELS[dtype]
+        self._call = SearchCall(dtype=0 if dtype == torch.float32 else 1,
+                                D=dim, stream=stream.cuda_stream)
+        self._ptr = ctypes.addressof(self._call)
+        self._batch = 0      # queries the workspaces hold
+        self._n_cand = 0     # split-list entries they hold
+        self._keep = ()      # the workspaces' tensors
+        self._reserve(1, _TARGET_BLOCKS * KMAX)  # any search at B = 1
+
+    def bind(self, data, norms, stage_rows, stage_norms):
+        """The database's (N_cap, D) rows and (N_cap,) norms on the card,
+        and its staging rows and norms in pinned host memory."""
+        c = self._call
+        c.data, c.norms = data.data_ptr(), norms.data_ptr()
+        c.stage_rows, c.stage_norms = (stage_rows.data_ptr(),
+                                       stage_norms.data_ptr())
+
+    def _reserve(self, B: int, n_cand: int):
+        B, n_cand = max(B, self._batch), max(n_cand, self._n_cand)
+        D = self._call.D
+        kw = dict(device=self.device)
+        with torch.cuda.stream(self.stream):
+            tickets = torch.zeros(max(3 * B, 64), dtype=torch.int32, **kw)
+            cand = torch.empty(2 * n_cand, dtype=torch.int32, **kw)
+            qn = torch.empty(B * D, dtype=self._dtype, **kw)
+            query_dev = torch.empty(B * D, dtype=torch.float32, **kw)
+            out_dev = torch.empty(2 * B * KMAX, dtype=torch.int32, **kw)
+        query_pinned = torch.empty(B * D, dtype=torch.float32,
+                                   pin_memory=True)
+        out_host = torch.empty(2 * B * KMAX, dtype=torch.int32,
+                               pin_memory=True)
+        self.stream.synchronize()
+        c = self._call
+        c.tickets, c.qn, c.query_dev = (tickets.data_ptr(), qn.data_ptr(),
+                                        query_dev.data_ptr())
+        c.cand_i = cand.data_ptr()
+        c.cand_v = cand.data_ptr() + 4 * n_cand
+        c.out_dev, c.query_pinned, c.out_host = (
+            out_dev.data_ptr(), query_pinned.data_ptr(), out_host.data_ptr())
+        self._keep = (tickets, cand, qn, query_dev, out_dev, query_pinned,
+                      out_host)
+        self._out = out_host.numpy()
+        self._batch, self._n_cand = B, n_cand
+
+    def search(self, queries: np.ndarray, n_valid: int, kp: int,
+               row0: int, n_rows: int):
+        """(B, kp) int32 rows and float32 sims of C-contiguous float32
+        (B, D) `queries` over the first n_valid rows, after uploading the
+        n_rows staged rows to rows row0 onwards. The arrays are views of
+        pinned memory that the next search overwrites."""
+        if queries.dtype != np.float32 or queries.ndim != 2 or \
+                queries.shape[1] != self._call.D or \
+                not queries.flags.c_contiguous:
+            raise ValueError("queries must be C-contiguous float32 (B, D)")
+        B = queries.shape[0]
+        qb, rt = block_shape(self._dtype, B)
+        splits, rows = split_plan(B, n_valid, qb, rt)
+        if B > self._batch or B * splits * kp > self._n_cand:
+            self._reserve(B, B * splits * kp)
+        c = self._call
+        c.n_valid, c.B, c.qb, c.kp = n_valid, B, qb, kp
+        c.splits, c.rows_per_split = splits, rows
+        c.row0, c.n_rows = row0, n_rows
+        c.query = queries.ctypes.data
+        rc = self._fn(self._ptr)
+        if rc != 0:
+            raise RuntimeError(f"cosine_topk single-call search failed: "
+                               f"CUDA error {rc}")
+        cosine_topk_pallas.launches[self._kernel] += 1
+        n = B * kp
+        out = self._out
+        return (out[:n].reshape(B, kp),
+                out[n:2 * n].view(np.float32).reshape(B, kp))

@@ -19,9 +19,10 @@ Design constraints:
   the back-end's worker thread) is then recorded whole or not at all,
   so its counters always go with its span. Outside any span the
   tracer's current state decides.
-- Bounded memory: a deque ring of `capacity` events; a saturated
-  mission drops the OLDEST events and counts each dropped event once
-  (`n_dropped`).
+- Bounded memory: a deque ring of `capacity` events (a million by
+  default: a sim5r.explore window of ~22,000 keyframes records ~650k,
+  ~29 a keyframe); a saturated mission drops the OLDEST events and
+  counts each dropped event once (`n_dropped`).
 - CUDA kernels launched inside a span run asynchronously: a span covers
   the host-side launches unless the stage itself synchronizes with the
   card (the solver stages do: they copy their results to the host, and
@@ -113,7 +114,7 @@ class _Span:
 class Tracer:
     """Process-wide span recorder; see module docstring."""
 
-    def __init__(self, capacity: int = 200_000):
+    def __init__(self, capacity: int = 1_000_000):
         self.enabled = False
         self._path = None
         self._events = deque(maxlen=capacity)

@@ -90,7 +90,7 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     lib = build_stamped()
-    _build._lib = lib  # this process's searches run the stamped copy
+    _build._libs[False] = lib  # searches here run the stamped copy
     stamps = torch.zeros(8 * 4096, dtype=torch.int64, device="cuda")
     if lib.set_stamps(stamps.data_ptr()) != 0:
         raise RuntimeError("set_stamps failed")

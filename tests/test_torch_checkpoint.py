@@ -126,12 +126,17 @@ def test_descriptor_database_checkpoint_roundtrip(tmp_path, storage):
     by add_item on restore."""
     rng = np.random.default_rng(0)
     db = TDB(method="exact", storage=storage, device="cpu")
+    rows = rng.standard_normal((10, 32)).astype(np.float32)
     for i in range(10):
-        db.add_item(rng.standard_normal(32).astype(np.float32), i)
+        db.add_item(rows[i], i)
+    assert db.n - db._flushed == 10  # staged, none uploaded yet
     path = str(tmp_path / "db.npz")
     tckpt._save_descriptor_db(db, path)
     with np.load(path) as blob:
         assert blob["data"].dtype == np.float32
+        # the file holds every staged row, as stored
+        stored = torch.from_numpy(rows).to(db.data.dtype).float().numpy()
+        np.testing.assert_array_equal(blob["data"], stored)
     db2 = TDB(method="exact", storage=storage, device="cpu")
     tckpt._load_descriptor_db(db2, path)
     assert db2.data.dtype == db.data.dtype
@@ -143,6 +148,37 @@ def test_descriptor_database_checkpoint_roundtrip(tmp_path, storage):
     np.testing.assert_array_equal(
         np.asarray(jdb.data[:10], dtype=np.float32),
         db.data[:10].float().numpy())
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+def test_checkpoint_sees_staged_rows(tmp_path, storage):
+    """A database with rows uploaded and rows still staged (150 adds,
+    searched after the 100th): the saved file holds all 150, the restored
+    database (its adds staged again) searches like the original, and a
+    save of the restored database writes the same rows."""
+    rng = np.random.default_rng(5)
+    db = TDB(method="pallas", storage=storage, device="cpu")
+    rows = rng.standard_normal((150, 24)).astype(np.float32)
+    for i, v in enumerate(rows):
+        db.add_item(v, 1000 + i)
+        if i == 99:
+            db.search_best(rows[0])
+    assert db._flushed == 100 and db.n == 150
+    path, again = str(tmp_path / "db.npz"), str(tmp_path / "again.npz")
+    tckpt._save_descriptor_db(db, path)
+    db2 = TDB(method="pallas", storage=storage, device="cpu")
+    tckpt._load_descriptor_db(db2, path)
+    assert db2.n == 150 and db2.items == db.items
+    for q in rng.standard_normal((5, 24)):
+        items, sims = db.search(q, 7)
+        items2, sims2 = db2.search(q, 7)
+        assert items2 == items
+        np.testing.assert_array_equal(sims2, sims)
+    tckpt._save_descriptor_db(db2, again)
+    with np.load(path) as a, np.load(again) as b:
+        assert a["data"].shape == (150, 24)
+        np.testing.assert_array_equal(a["data"], b["data"])
+        np.testing.assert_array_equal(a["items"], b["items"])
 
 
 @pytest.mark.parametrize("writer,reader", [("jax", "port"), ("port", "jax")])

@@ -1,6 +1,8 @@
 """The port on an NVIDIA card: the CUDA kernel against its plain version
 (at the slice's 512-d and the descriptor models' 64-d and 128-d), the
-kernel behind DescriptorDatabase(method="pallas"), the slice on the
+kernel behind DescriptorDatabase(method="pallas") (its single-call
+search against its torch path, bit for bit, and beside a busy default
+stream), the slice on the
 card against the same slice on the CPU, the sim mission through
 SwarmNode on the card against the same mission on the CPU, and the
 place-recognition models (shipped weights) on the card against the
@@ -241,6 +243,92 @@ def test_descriptor_database_bf16_kernel_matches_plain(cuda):
     np.testing.assert_allclose(sims_k, sims_p, atol=1e-4)
     assert kp.cosine_topk_pallas.launches["cosine_topk_bf16_mma"] == \
         before + 11
+
+
+@pytest.mark.parametrize("storage", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dim", [32, 64, 512])
+def test_single_call_search_matches_torch_path(cuda, dim, storage):
+    """The single-call search against the torch path on the same
+    database: the same rows and similarities, bit for bit, at k in
+    {1, 5, 64}, n from 1 to 2,100 (two capacity doublings), each search
+    uploading the 0 to 10 rows staged since the last, and for batches of
+    3 and 20; `knn.native_searches` counts every single-call search and
+    every row is uploaded once."""
+    from cslam_tpu_torch.runtime.tracing import tracer
+
+    rng = np.random.default_rng(dim)
+    db = DescriptorDatabase(method="pallas", storage=storage, device=cuda)
+    tracer.clear()
+    tracer.enable(None)
+    try:
+        n, pending, native = 0, 1, 0
+        while n < 2100:
+            for _ in range(pending):
+                db.add_item(rng.standard_normal(dim), n)
+                n += 1
+            q = rng.standard_normal(dim).astype(np.float32)
+            for k in (1, 5, 64):
+                idx, sims = db._search(q, k)
+                native += 1
+                assert db._flushed == db.n == n
+                idx_t, sims_t = db._search_torch(
+                    q.reshape(1, -1), min(k, db._capacity), min(k, n))
+                np.testing.assert_array_equal(idx, idx_t)
+                np.testing.assert_array_equal(sims.view(np.int32),
+                                              sims_t.view(np.int32))
+            pending = (pending + 1) % 11
+        for batch in (3, 20):
+            qs = rng.standard_normal((batch, dim)).astype(np.float32)
+            idx, sims = db._search(qs, 5)
+            native += 1
+            idx_t, sims_t = db._search_torch(qs, 5, 5)
+            np.testing.assert_array_equal(idx, idx_t)
+            np.testing.assert_array_equal(sims.view(np.int32),
+                                          sims_t.view(np.int32))
+        counts = tracer.counter_totals()["knn"]
+    finally:
+        tracer.disable()
+        tracer.clear()
+    assert db._capacity == 4096
+    assert counts["native_searches"] == native
+    assert counts["flushed_rows"] == n
+    assert "fallback_searches" not in counts
+
+
+def test_single_call_search_does_not_wait_for_the_default_stream(cuda):
+    """A search (with staged rows to upload) issued while another thread
+    keeps the legacy default stream busy for ~1.5 s returns at once, with
+    the answer the torch path gives once that stream is free."""
+    import threading
+    import time
+
+    rng = np.random.default_rng(2)
+    db = DescriptorDatabase(dim=512, device=cuda)
+    for i in range(300):
+        db.add_item(rng.standard_normal(512), i)
+    q = rng.standard_normal(512).astype(np.float32)
+    db.search_best(q)  # the workspaces are made and the rows uploaded
+    for i in range(5):
+        db.add_item(rng.standard_normal(512), 300 + i)
+    busy = threading.Event()
+
+    def keep_default_stream_busy():
+        torch.cuda._sleep(3_000_000_000)  # ~1.5 s of clock cycles
+        busy.set()
+
+    other = threading.Thread(target=keep_default_stream_busy)
+    other.start()
+    busy.wait()
+    t = time.perf_counter()
+    item, sim = db.search_best(q)
+    seconds = time.perf_counter() - t
+    still_busy = not torch.cuda.default_stream(cuda).query()
+    other.join()
+    torch.cuda.synchronize()
+    assert still_busy, "the default stream's work ended before the search"
+    assert seconds < 0.2, seconds
+    idx_t, sims_t = db._search_torch(q.reshape(1, -1), 1, 1)
+    assert item == int(idx_t[0, 0]) and sim == sims_t[0, 0]
 
 
 def test_slice_on_card_matches_cpu(cuda):

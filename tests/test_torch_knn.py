@@ -21,6 +21,7 @@ from cslam_tpu.matching.descriptor_db import \
 from cslam_tpu.matching.sparse_matching import \
     LoopClosureSparseMatching as JaxLCSM
 from cslam_tpu.ops import knn as jknn
+from cslam_tpu_torch.matching import descriptor_db as tdb
 from cslam_tpu_torch.matching.descriptor_db import DescriptorDatabase
 from cslam_tpu_torch.matching.sparse_matching import LoopClosureSparseMatching
 from cslam_tpu_torch.ops import knn as tknn
@@ -265,6 +266,7 @@ def test_descriptor_database_matches_reference(method, storage):
         ref.add_item(v, i)
         db.add_item(v, i)
     assert len(db) == 20 and db._capacity == ref._capacity == 32
+    db.data  # uploads the staged rows and their norms
     np.testing.assert_allclose(db._norms.numpy(), np.asarray(ref._norms),
                                atol=1e-6)
     for _ in range(5):
@@ -279,6 +281,71 @@ def test_descriptor_database_matches_reference(method, storage):
     items, sims = db.batch_search(qs, 30)
     assert items == items_r and sims.shape == (3, 20)
     np.testing.assert_allclose(sims, sims_r, atol=tol)
+
+
+@pytest.mark.parametrize("method,storage", [("pallas", "float32"),
+                                            ("exact", "float32"),
+                                            ("pallas", "bfloat16")])
+def test_staged_adds_across_growth_match_eager_and_reference(method,
+                                                             storage):
+    """Adds staged between searches (0 to 10 pending rows each time),
+    across the capacity doubling 1024 -> 2048: the same items and
+    similarities, bit for bit, as a database whose every add is uploaded
+    at once (`data` after each add), and the reference's items and
+    similarities within its bound (bf16: similarities within the
+    reference's own 5e-3 between its two bf16 lowerings)."""
+    rng = np.random.default_rng(21)
+    ref = JaxDescriptorDatabase(dim=8, method="exact", storage=storage)
+    staged, eager = [DescriptorDatabase(dim=8, method=method,
+                                        storage=storage, device="cpu")
+                     for _ in range(2)]
+    n, pending = 0, 0
+    while n < 2100:
+        capacity = staged._capacity
+        for _ in range(pending):
+            v = _unit(rng, 8)
+            for db in (ref, staged, eager):
+                db.add_item(v, n)
+            eager.data  # uploads the row now
+            n += 1
+        # a growth uploads the rows staged before it
+        assert staged.n - staged._flushed == (
+            pending if staged._capacity == capacity else n - capacity)
+        q = _unit(rng, 8)
+        items_s, sims_s = staged.search(q, 5)
+        items_e, sims_e = eager.search(q, 5)
+        assert staged._flushed == staged.n
+        assert items_s == items_e
+        np.testing.assert_array_equal(sims_s, sims_e)
+        items_r, sims_r = ref.search(q, 5)
+        if storage == "float32":
+            assert items_s == items_r
+            np.testing.assert_allclose(sims_s, sims_r, atol=F32_TOL)
+        else:
+            np.testing.assert_allclose(sims_s, sims_r, atol=5e-3)
+        pending = (pending + 1) % 11
+    assert staged._capacity == eager._capacity == 4096
+    assert torch.equal(staged.data, eager.data)
+    assert torch.equal(staged._norms, eager._norms)
+
+
+def test_bf16_staging_rounds_like_torch():
+    """The staged bf16 bits are torch's rounding of the same float32
+    values: nearest, ties to even, overflow to infinity; NaN stays NaN."""
+    rng = np.random.default_rng(3)
+    v = rng.standard_normal(4096).astype(np.float32) * \
+        np.float32(10.0) ** rng.integers(-40, 38, 4096).astype(np.float32)
+    # exactly halfway between two bf16 values, below the NaN exponent
+    ties = ((rng.integers(0, 2, 512, dtype=np.uint32) << 31) |
+            (rng.integers(0, 0x7F80, 512, dtype=np.uint32) << 16) |
+            0x8000).view(np.float32)
+    special = np.array([np.inf, -np.inf, 3.4e38, -3.4e38, 0.0, -0.0,
+                        1e-45, -1e-40, 1.0, 1.00390625], dtype=np.float32)
+    v = np.concatenate([v, ties, special])
+    want = torch.from_numpy(v).to(torch.bfloat16).view(torch.int16).numpy()
+    np.testing.assert_array_equal(tdb.bf16_bits(v), want.view(np.uint16))
+    nan = tdb.bf16_bits(np.array([np.nan, -np.nan], dtype=np.float32))
+    assert np.isnan((nan.astype(np.uint32) << 16).view(np.float32)).all()
 
 
 def test_descriptor_database_empty_and_auto():
@@ -399,6 +466,21 @@ def test_database_state_carried_across(storage):
     assert db.data.dtype == (torch.bfloat16 if storage == "bfloat16"
                              else torch.float32)
     tol = 5e-3 if storage == "bfloat16" else F32_TOL
+    for _ in range(5):
+        q = _unit(rng, 16)
+        items_r, sims_r = ref.search(q, 6)
+        items, sims = db.search(q, 6)
+        assert items == items_r
+        np.testing.assert_allclose(sims, sims_r, atol=tol)
+    # rows added after the carry are staged; `data` and searches see them
+    rows = [_unit(rng, 16) for _ in range(30)]  # grows 64 -> 128
+    for i, v in enumerate(rows):
+        ref.add_item(v, ("kf", 40 + i))
+        db.add_item(v, ("kf", 40 + i))
+    assert db.n - db._flushed == 6  # the 24 before the growth went up
+    np.testing.assert_array_equal(db.data[:70].float().numpy(),
+                                  np.asarray(ref.data[:70], np.float32))
+    assert db._flushed == db.n == 70 and db.data.shape == (128, 16)
     for _ in range(5):
         q = _unit(rng, 16)
         items_r, sims_r = ref.search(q, 6)

@@ -207,6 +207,27 @@ def test_descriptor_database_spans(traced):
     assert [e["args"] for e in searches] == [
         {"rows": 9, "batch": 1, "k": 1}, {"rows": 9, "batch": 1, "k": 3},
         {"rows": 9, "batch": 5, "k": 2}]
+    # on the CPU every search takes torch ops; both growths and the first
+    # search upload the staged rows
+    assert traced.counter_totals()["knn"] == {
+        "fallback_searches": 3, "flushes": 3, "flushed_rows": 9}
+
+
+def test_descriptor_database_counters(traced):
+    """Adds staged between CPU searches: every search is a fallback, and
+    there is one upload per search that follows adds, of those adds."""
+    rng = np.random.default_rng(1)
+    db = DescriptorDatabase(capacity=64, device="cpu")
+    plan = [3, 0, 1, 5, 0, 0, 2]  # adds before each search
+    for adds in plan:
+        for r in _unit_rows(rng, adds, 16):
+            db.add_item(r, db.n)
+        db.search_best(_unit_rows(rng, 1, 16)[0])
+    assert len(_spans(traced, "knn_add")) == sum(plan)
+    assert len(_spans(traced, "knn_search")) == len(plan)
+    assert traced.counter_totals()["knn"] == {
+        "fallback_searches": len(plan),
+        "flushes": sum(a > 0 for a in plan), "flushed_rows": sum(plan)}
 
 
 def _gossip_params(robot_id):
