@@ -21,8 +21,8 @@ Phases, each printing one JSON line with its own elapsed_s:
      against the plain version's and torch.linalg's in float32; then
      `knn_host`: the host microseconds of one DescriptorDatabase search
      and add at the sim cells' shape, the torch path against the
-     single-call search with the GIL released and held, alone and
-     beside a thread of solve-like small CUDA ops (time_knn_host);
+     single-call search, alone and beside a thread of solve-like small
+     CUDA ops (time_knn_host);
   4. slice: the device path at map scale — 4 robots x 1000 keyframes,
      512-d descriptors: kNN ingestion through the f32 kernel, 2 rounds
      of MAC selection (matrix-free Fiedler path, P = 4096), GNC-LM PGO;
@@ -632,13 +632,10 @@ def _percentiles_us(times):
 def time_knn_host(card):
     """Host microseconds of one descriptor search and one add as the sim
     cells issue them, the torch path against the single-call search
-    (the GIL released for the call, as ctypes.CDLL does, and
-    held, as ctypes.PyDLL does), alone and beside a thread of solve-like
-    small CUDA ops; the variants interleave in rounds. Also the
-    competing thread's ops per second beside each variant."""
-    from cslam_tpu_torch import _build
+    (which holds the GIL through its call), alone and beside a thread of
+    solve-like small CUDA ops; the variants interleave in rounds. Also
+    the competing thread's ops per second beside each variant."""
     from cslam_tpu_torch.matching.descriptor_db import DescriptorDatabase
-    from cslam_tpu_torch.ops import knn_pallas as kp
 
     cfg = KNN_HOST
     rng = np.random.default_rng(SEED)
@@ -646,23 +643,12 @@ def time_knn_host(card):
     for i in range(cfg["rows"]):
         db.add_item(rng.standard_normal(cfg["dim"]), i)
     queries = rng.standard_normal((64, cfg["dim"])).astype(np.float32)
-    cards = {}
-    for hold in (False, True):
-        cards[hold] = kp.CardSearch(db._stream, torch.float32, cfg["dim"])
-        cards[hold]._fn = _build.load_library(hold).cosine_topk_search_sync
-        cards[hold].bind(db._data, db._norms, db._stage, db._stage_norms)
 
     def old_search(q):
         return db._search_torch(q.reshape(1, -1), 1, 1)
 
-    def new_search(hold):
-        def search(q):
-            db._card = cards[hold]
-            return db._search(q, 1)
-        return search
-
-    searches = {"torch_path": old_search, "single_call_gil_released":
-                new_search(False), "single_call_gil_held": new_search(True)}
+    searches = {"torch_path": old_search,
+                "single_call": lambda q: db._search(q, 1)}
     ref = old_search(queries[0])
     for name, fn in searches.items():  # warm, and the same answer
         got = fn(queries[0])
@@ -726,7 +712,7 @@ def time_knn_host(card):
                 n: float(np.median(r)) for n, r in rate.items()}
     return {"shape": {k: cfg[k] for k in ("dim", "rows")},
             "calls_per_variant": cfg["calls"] * cfg["rounds"],
-            "hold_gil": kp.HOLD_GIL, "card": card, **res}
+            "card": card, **res}
 
 
 # the small-dense kernel at LOBPCG's shapes (block k = 4): the
@@ -1200,7 +1186,8 @@ def check_place_recognition(res):
 def visual_frames(n_pairs, seed):
     """n_pairs (image, depth, pose) pairs of nearby views of the visual
     mission's world (a revisit within 0.2 m and 3 degrees)."""
-    from cslam_tpu_torch.visual_mission import SquareWorld, make_pose
+    from cslam_tpu_torch.mission import make_pose
+    from cslam_tpu_torch.visual_mission import SquareWorld
     world = SquareWorld()
     rng = np.random.default_rng(seed)
     out = []
@@ -1469,7 +1456,8 @@ def check_offset_revisit(device):
         GlobalDescriptorLoopClosureDetection
     from cslam_tpu_torch.frontend.rgbd_handler import RGBDHandler
     from cslam_tpu_torch.frontend.sim import render_corner_scene
-    from cslam_tpu_torch.visual_mission import INTR, make_pose
+    from cslam_tpu_torch.mission import make_pose
+    from cslam_tpu_torch.visual_mission import INTR
 
     params = dict(TRAINED_PARAMS, **{
         "robot_id": 0, "max_nb_robots": 1,
@@ -1530,7 +1518,8 @@ def check_inter_robot(device):
         ManualClock
     from cslam_tpu_torch.frontend.rgbd_handler import RGBDHandler
     from cslam_tpu_torch.frontend.sim import render_corner_scene
-    from cslam_tpu_torch.visual_mission import INTR, make_pose
+    from cslam_tpu_torch.mission import make_pose
+    from cslam_tpu_torch.visual_mission import INTR
 
     router = InProcessRouter()
     results = []
@@ -2767,16 +2756,16 @@ def pgo_references(world, fg, multiple):
     robot-sorted arrays and on the same factors in insertion order (a
     witness of what the order of the sums alone does, without a mesh)."""
     from cslam_tpu_torch.backend import pgo
-    from cslam_tpu_torch.swarm_slice import SLICE_PGO
+    from cslam_tpu_torch.mission import MISSION_PGO
     g = fg.to_arrays(edge_bucket_multiple=multiple, sort_by_robot=True,
                      device="cuda")
     g_other = fg.to_arrays(edge_bucket_multiple=multiple,
                            sort_by_robot=False, device="cuda")
     if g_other.e_i.shape != g.e_i.shape:
         raise AssertionError("the two factor orders bucket differently")
-    cfgs = {"slice": SLICE_PGO._replace(linear_solver="pcg"),
-            "converged": SLICE_PGO._replace(linear_solver="pcg",
-                                            **MULTICHIP_CONVERGED)}
+    cfgs = {"slice": MISSION_PGO._replace(linear_solver="pcg"),
+            "converged": MISSION_PGO._replace(linear_solver="pcg",
+                                              **MULTICHIP_CONVERGED)}
     out = {"graph": g, "cfg": cfgs, "result": {}, "report": {
         "poses": fg.num_nodes, "factors": fg.num_factors,
         "ate_odometry": _graph_ate(world, fg, g.t)}}

@@ -34,13 +34,12 @@ SIGNATURES = {
     "cosine_topk_launch": ([_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P],
                            _I),
-    "cosine_topk_search_sync": ([_P], _I),
     "small_eigh_launch": ([_P, _I, _I, _P, _P, _P], _I),
     "small_qr_launch": ([_P, _I, _I, _I, _P, _P, _P], _I),
     "small_svd_launch": ([_P, _I, _I, _P, _P, _P, _P], _I),
 }
 
-_libs = {}  # hold_gil -> the loaded library
+_lib = None  # the loaded library
 build_seconds = None  # wall seconds of this process's build, if it built
 
 
@@ -110,23 +109,19 @@ def build(out: Path) -> float:
     return time.perf_counter() - t0
 
 
-def load_library(hold_gil: bool = False):
-    """The kernel library, built on first use in this checkout.
-
-    Its functions release the GIL for the call (ctypes.CDLL), or, with
-    hold_gil, keep it (ctypes.PyDLL: no release and no re-acquisition,
-    for a short call from a thread that competes with others for it)."""
-    global build_seconds
-    lib = _libs.get(hold_gil)
-    if lib is not None:
-        return lib
+def load_library():
+    """The kernel library, built on first use in this checkout and loaded
+    once (ctypes.CDLL: its functions release the GIL for the call)."""
+    global _lib, build_seconds
+    if _lib is not None:
+        return _lib
     path = library_path()
     if not path.exists():
         build_seconds = build(path)
-    lib = (ctypes.PyDLL if hold_gil else ctypes.CDLL)(str(path))
+    lib = ctypes.CDLL(str(path))
     for name, (argtypes, restype) in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = restype
-    _libs[hold_gil] = lib
+    _lib = lib
     return lib

@@ -37,6 +37,13 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+def sync(device: torch.device):
+    """Wait for the work queued on `device`: torch.cuda.synchronize on a
+    CUDA device, nothing on the CPU."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def require_full_fp32(device: DeviceLike = None):
     """Raise if fp32 matrix products or convolutions may run in TF32 on
     `device`. A CPU device has no TF32 mode and passes; None checks the

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from cslam_tpu_torch.comm import messages as msgs
-from cslam_tpu_torch.device import DeviceLike, resolve_device
+from cslam_tpu_torch.device import DeviceLike, resolve_device, sync
 from cslam_tpu_torch.frontend.rgbd_handler import host_result
 from cslam_tpu_torch.ops import fpfh as fpfh_ops
 from cslam_tpu_torch.ops import registration, scancontext as sc_ops
@@ -48,12 +48,6 @@ class KeyframePointCloud:
 def _to_device(x, device):
     return torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(
         device)
-
-
-def _sync(device):
-    """End a span's device work, so that the span times it."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 class ScanContextModel:
@@ -217,7 +211,7 @@ class LidarHandler:
             # float, without a copy back
             yaw = (-yaws[0].to(torch.float64) * (2.0 * np.pi / 60.0)).to(
                 torch.float32)
-            _sync(self.device)
+            sync(self.device)  # the span times its device work
         seeds.append((registration.yaw_rotation(yaw),
                       torch.zeros(3, dtype=torch.float32, device=self.device)))
         with span("fpfh", robot=self.robot_id):
@@ -225,13 +219,13 @@ class LidarHandler:
             fb = fpfh_ops.fpfh(dst, dst_mask)
             idx, valid = fpfh_ops.fpfh_correspondences(fa, src_mask, fb,
                                                        dst_mask)
-            _sync(self.device)
+            sync(self.device)
         with span("ransac_3d3d", robot=self.robot_id):
             coarse = ransac_rigid3d(src, dst[idx], valid,
                                     inlier_threshold=4.0 * self.voxel_size,
                                     min_inliers=3)
             seeds.append((coarse.R, coarse.t))
-            _sync(self.device)
+            sync(self.device)
 
         best = None
         for R0, t0 in seeds:

@@ -27,7 +27,7 @@ from cslam_tpu_torch.device import DeviceLike, resolve_device
 from cslam_tpu_torch.frontend.lidar_handler import LidarHandler, \
     ScanContextModel
 from cslam_tpu_torch.mission import MISSION_PGO, MissionSwarm, \
-    mission_results, run_stages
+    make_pose, mission_results, run_stages
 from cslam_tpu_torch.node import SwarmNode
 from cslam_tpu_torch.ops import se3
 
@@ -76,11 +76,6 @@ class LidarWorld:
         local = (vis - t) @ R
         return (local + rng.standard_normal(local.shape).astype(np.float32)
                 * SCAN_NOISE).astype(np.float32)
-
-
-def make_pose(x, y=0.0, yaw=0.0):
-    R = se3.so3_exp(torch.tensor([0.0, 0.0, yaw], dtype=torch.float32))
-    return R.numpy().astype(np.float32), np.array([x, y, 0], np.float32)
 
 
 def trajectories(n_robots, n_poses):

@@ -1,12 +1,13 @@
-"""What the sensor missions through SwarmNode share.
+"""The missions through SwarmNode, on one base.
 
-The visual mission (`visual_mission.py`) and the lidar mission
-(`lidar_mission.py`) drive the same swarm: per robot a sensor handler
-and a `SwarmNode` on one `InProcessRouter`, a feed of every robot's
-frames in turn, 4 detection rounds, and optimization rounds until one
-solve has finished. Each solve is waited on with a timeout, and every
-node and handler is closed, also on failure. `run_stages` times the
-stages on the host clock around work that ends in a device synchronize.
+The sim mission (`sim_mission.py`), the visual mission
+(`visual_mission.py`) and the lidar mission (`lidar_mission.py`) drive
+the same swarm: per robot a sensor handler and a `SwarmNode` on one
+`InProcessRouter`, a feed of every robot's frames in turn, 4 detection
+rounds, and optimization rounds until one solve has finished. Each solve
+is waited on with a timeout, and every node and handler is closed, also
+on failure. `run_stages` times the stages on the host clock around work
+that ends in a device synchronize.
 """
 
 import time
@@ -18,7 +19,8 @@ import torch
 from cslam_tpu_torch.backend import pgo
 from cslam_tpu_torch.backend.decentralized_pgo import OptimizerState
 from cslam_tpu_torch.comm.bus import InProcessRouter, ManualClock
-from cslam_tpu_torch.device import DeviceLike, resolve_device
+from cslam_tpu_torch.device import DeviceLike, resolve_device, sync
+from cslam_tpu_torch.ops import se3
 from cslam_tpu_torch.utils.evaluation import ate_rmse
 
 DETECTION_ROUNDS = 4
@@ -29,15 +31,23 @@ SOLVE_TIMEOUT_S = 300.0
 MISSION_PGO = pgo.PGOConfig(lm_max_iters=15, cg_max_iters=80)
 
 
-def sync(device: torch.device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def make_pose(x, y=0.0, yaw=0.0):
+    """(R, t) at (x, y, 0) with heading `yaw`, as float32 numpy."""
+    R = se3.so3_exp(torch.tensor([0.0, 0.0, yaw], dtype=torch.float32))
+    return R.numpy().astype(np.float32), np.array([x, y, 0], np.float32)
 
 
 class MissionSwarm:
     """Router, clock, and per robot a handler and a SwarmNode (the
     subclass builds them, sets the true and odometry trajectories, and
-    feeds the frames, filling `kf_to_pose`)."""
+    feeds the frames, filling `kf_to_pose`).
+
+    The router's spin caps after the publication ticks and after the
+    detection ticks of each detection round are class constants: the sim
+    mission keeps the reference's (tests/test_e2e_swarm.py)."""
+
+    PUBLICATION_SPIN_ROUNDS = 2000
+    DETECTION_SPIN_ROUNDS = 2000
 
     def __init__(self, n_robots: int, n_poses: int,
                  device: DeviceLike = None):
@@ -53,16 +63,19 @@ class MissionSwarm:
         raise NotImplementedError
 
     def detect(self):
+        """Gossip (publication ticks), then detection ticks."""
         for _ in range(DETECTION_ROUNDS):
             for node in self.nodes.values():
                 node.tick_detection_publication()
-            self.router.spin_until_idle(max_rounds=2000)
+            self.router.spin_until_idle(
+                max_rounds=self.PUBLICATION_SPIN_ROUNDS)
             for node in self.nodes.values():
                 node.tick_inter_robot_detection()
-            self.router.spin_until_idle(max_rounds=2000)
+            self.router.spin_until_idle(max_rounds=self.DETECTION_SPIN_ROUNDS)
 
     def optimize(self):
-        """Optimization rounds until one solve has finished."""
+        """Optimization rounds until one solve has finished; each solve
+        is waited on for at most SOLVE_TIMEOUT_S."""
         for _ in range(OPTIMIZATION_ROUNDS):
             for node in self.nodes.values():
                 node.tick_optimization_start()

@@ -257,16 +257,6 @@ def cosine_topk_pallas(data, n_valid, queries, k: int, tile_rows=None,
 cosine_topk_pallas.launches = dict.fromkeys(KERNELS.values(), 0)
 
 
-# The single-call search keeps the GIL through its call (ctypes.PyDLL,
-# see _build.load_library). The call lasts ~40 us; a thread that gives
-# the GIL up for it waits to take it back behind a thread of small torch
-# ops (the back-end's solve). On an H100 beside such a thread a search
-# took 45 / 53 us (p50 / p90) held against 100 / 198 us released, and
-# the sim cells ran more keyframes a second with a lower map latency
-# held than released (`chip_smoke.py --only knn_host`, PERF.md).
-HOLD_GIL = True
-
-
 class SearchCall(ctypes.Structure):
     """`SearchCall` of csrc/cosine_topk.cu, field for field."""
 
@@ -288,7 +278,11 @@ class CardSearch:
     copies, the results' device and pinned host copies) belong to this
     object and grow with the batch and the split lists; `bind` points
     the call at the database's buffers and its staging rows after every
-    reallocation. Not thread-safe: one thread at a time."""
+    reallocation. Not thread-safe: one thread at a time.
+
+    The call holds the GIL (a `ctypes.PYFUNCTYPE` prototype): a thread
+    that gives it up for the ~40 us call waits to take it back behind the
+    solve thread's small torch ops (PERF.md §6)."""
 
     def __init__(self, stream, dtype, dim: int):
         from cslam_tpu_torch import _build
@@ -296,7 +290,8 @@ class CardSearch:
         if dtype not in KERNELS:
             raise TypeError(f"cosine_topk kernel takes float32 or bfloat16 "
                             f"data, got {dtype}")
-        self._fn = _build.load_library(HOLD_GIL).cosine_topk_search_sync
+        self._fn = ctypes.PYFUNCTYPE(ctypes.c_int, ctypes.c_void_p)(
+            ("cosine_topk_search_sync", _build.load_library()))
         self.stream = stream
         self.device = stream.device
         self._dtype = dtype

@@ -19,23 +19,15 @@ import time
 from typing import Dict
 
 import numpy as np
-import torch
 
-from cslam_tpu_torch.backend.decentralized_pgo import OptimizerState
 from cslam_tpu_torch.comm import messages as msgs
-from cslam_tpu_torch.comm.bus import InProcessBus, InProcessRouter, \
-    ManualClock
-from cslam_tpu_torch.device import DeviceLike, resolve_device
+from cslam_tpu_torch.comm.bus import InProcessBus
+from cslam_tpu_torch.device import DeviceLike, resolve_device, sync
 from cslam_tpu_torch.frontend.sim import SimSensorHandler, SyntheticWorld
+from cslam_tpu_torch.mission import MISSION_PGO, MissionSwarm, run_stages
 from cslam_tpu_torch.node import SwarmNode
-from cslam_tpu_torch.swarm_slice import BUDGET, DRIFT, GATE_M, SLICE_PGO, \
-    make_params
+from cslam_tpu_torch.swarm_slice import BUDGET, DRIFT, GATE_M, make_params
 from cslam_tpu_torch.utils.evaluation import ate_rmse
-
-DETECTION_ROUNDS = 4
-OPTIMIZATION_ROUNDS = 20
-# a solve that takes longer is a stall: its future raises TimeoutError
-SOLVE_TIMEOUT_S = 300.0
 
 
 def mission_params(robot_id: int, max_nb_robots: int) -> Dict:
@@ -65,25 +57,27 @@ class SimDescriptorModel:
         return self.world.descriptor(self.rid, kf_id)
 
 
-class Swarm:
-    """One simulated swarm: router, clock, world, nodes, handlers and
-    each robot's drifted odometry."""
+class Swarm(MissionSwarm):
+    """One simulated swarm: the world, per robot a SwarmNode and a
+    SimSensorHandler, and each robot's drifted odometry."""
+
+    # the reference's spin caps (tests/test_e2e_swarm.py)
+    PUBLICATION_SPIN_ROUNDS = 100
+    DETECTION_SPIN_ROUNDS = 500
 
     def __init__(self, n_robots: int, n_poses: int, descriptor_dim: int = 32,
                  seed: int = 0, device: DeviceLike = None):
-        self.device = resolve_device(device)
-        self.router = InProcessRouter()
-        self.clock = ManualClock()
+        super().__init__(n_robots, n_poses, device)
         self.world = SyntheticWorld(n_robots, n_poses, seed=seed,
                                     descriptor_dim=descriptor_dim)
-        self.nodes, self.handlers, self.odom = {}, {}, {}
+        self.odom = {}
         for rid in range(n_robots):
             bus = InProcessBus(self.router, rid)
             params = mission_params(rid, n_robots)
             self.nodes[rid] = SwarmNode(
                 params, bus, self.clock,
                 descriptor_model=SimDescriptorModel(self.world, rid),
-                pgo_config=SLICE_PGO, device=self.device)
+                pgo_config=MISSION_PGO, device=self.device)
             self.handlers[rid] = SimSensorHandler(
                 params, bus, self.world, verification_gate=GATE_M)
             self.odom[rid] = self.world.noisy_odometry(rid, drift=DRIFT)
@@ -98,45 +92,6 @@ class Swarm:
                     id=kf, pose=(self.odom[rid][0][kf],
                                  self.odom[rid][1][kf])))
             self.router.spin_until_idle()
-
-    def detect(self):
-        """Gossip (publication ticks), then detection ticks."""
-        for _ in range(DETECTION_ROUNDS):
-            for node in self.nodes.values():
-                node.tick_detection_publication()
-            self.router.spin_until_idle()
-            for node in self.nodes.values():
-                node.tick_inter_robot_detection()
-            self.router.spin_until_idle(max_rounds=500)
-
-    def optimize(self):
-        """Optimization rounds until one solve has finished; each solve
-        is waited on for at most SOLVE_TIMEOUT_S."""
-        for _ in range(OPTIMIZATION_ROUNDS):
-            for node in self.nodes.values():
-                node.tick_optimization_start()
-            self.router.spin_until_idle()
-            for node in self.nodes.values():
-                node.tick_optimization_loop()
-            self.router.spin_until_idle()
-            for node in self.nodes.values():
-                be = node.backend
-                if be.optimizer_state == OptimizerState.OPTIMIZATION and \
-                        be._optimization_future is not None:
-                    be._optimization_future.result(timeout=SOLVE_TIMEOUT_S)
-                    be.check_result_and_finish_optimization()
-            self.router.spin_until_idle()
-            if any(n.backend.optimization_count > 0
-                   for n in self.nodes.values()):
-                for node in self.nodes.values():
-                    node.tick_optimization_loop()
-                self.router.spin_until_idle()
-                return
-        raise AssertionError("optimization never completed")
-
-    def close(self):
-        for node in self.nodes.values():
-            node.close()
 
     def ate(self):
         """{robot: (odometry ATE, estimate ATE or None)}: a robot that
@@ -153,11 +108,6 @@ class Swarm:
         return out
 
 
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def run_mission(n_robots: int, n_poses: int, descriptor_dim: int = 32,
                 seed: int = 0, device: DeviceLike = None) -> Dict:
     """Build, feed, detect and optimize one swarm; close its nodes.
@@ -169,19 +119,11 @@ def run_mission(n_robots: int, n_poses: int, descriptor_dim: int = 32,
     aggregated graph (padded host arrays, and with their copy to the
     device), and each robot's ATE."""
     dev = resolve_device(device)
-    timings = {}
     t0 = time.perf_counter()
     swarm = Swarm(n_robots, n_poses, descriptor_dim, seed, device=dev)
     try:
-        timings["build"] = time.perf_counter() - t0
-        for stage, fn in (("feed", swarm.feed),
-                          ("detection", swarm.detect),
-                          ("optimization", swarm.optimize)):
-            _sync(dev)
-            t = time.perf_counter()
-            fn()
-            _sync(dev)
-            timings[stage] = time.perf_counter() - t
+        timings = {"build": time.perf_counter() - t0}
+        timings.update(run_stages(swarm))
         det = swarm.nodes[0].detection
         cs = det.lcm.candidate_selector
         be0 = swarm.nodes[0].backend
@@ -189,10 +131,10 @@ def run_mission(n_robots: int, n_poses: int, descriptor_dim: int = 32,
         t = time.perf_counter()
         fg.to_numpy()
         to_numpy_s = time.perf_counter() - t
-        _sync(dev)
+        sync(dev)
         t = time.perf_counter()
         fg.to_arrays(device=dev)
-        _sync(dev)
+        sync(dev)
         to_arrays_s = time.perf_counter() - t
         return {
             "timings_s": timings,

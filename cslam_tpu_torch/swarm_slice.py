@@ -24,22 +24,20 @@ import time
 from typing import Dict, NamedTuple
 
 import numpy as np
-import torch
 
 from cslam_tpu_torch.backend import pgo
 from cslam_tpu_torch.backend.factor_graph import (BetweenFactor, FactorGraph,
                                                   diag_sqrt_info)
-from cslam_tpu_torch.device import DeviceLike, resolve_device
+from cslam_tpu_torch.device import DeviceLike, resolve_device, sync
 from cslam_tpu_torch.frontend.sim import SyntheticWorld, measure
 from cslam_tpu_torch.matching.sparse_matching import LoopClosureSparseMatching
+from cslam_tpu_torch.mission import MISSION_PGO
 from cslam_tpu_torch.utils.evaluation import ate_rmse
 
 # the reference back-end's default odometry noise ([omega, v] sigmas)
 ODOM_NOISE_STD = np.array([0.01, 0.01, 0.01, 0.1, 0.1, 0.1], np.float32)
 # the sim handler stamps max(measurement_noise, 1e-3)^2 as covariance
 LOOP_NOISE_STD = np.full(6, 1e-3, np.float32)
-# the sim mission's solver settings (full GNC anneal depth)
-SLICE_PGO = pgo.PGOConfig(lm_max_iters=15, cg_max_iters=80)
 # the sim mission's selection budget per round, verification gate (m)
 # and odometry drift (per-step tangent sigma)
 BUDGET = 5
@@ -156,11 +154,6 @@ def trajectory_ate(world: SyntheticWorld, est: Dict[int, np.ndarray]):
                     gt)
 
 
-def _sync(device: torch.device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def run_slice(n_robots: int, n_poses: int, descriptor_dim: int = 32,
               seed: int = 0, device: DeviceLike = None,
               nns_method: str = "auto", rounds: int = 8) -> Dict:
@@ -179,20 +172,20 @@ def run_slice(n_robots: int, n_poses: int, descriptor_dim: int = 32,
     lcm = LoopClosureSparseMatching(
         make_params(0, n_robots, BUDGET, nns_method), device=dev)
     ingest(lcm, descriptors)
-    _sync(dev)
+    sync(dev)
     timings["knn_ingest_s"] = time.perf_counter() - t0
     candidates = candidate_table(lcm)
 
     t0 = time.perf_counter()
     selected, verified, failures = detect_and_verify(world, lcm, rounds,
                                                      BUDGET, GATE_M)
-    _sync(dev)
+    sync(dev)
     timings["mac_select_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     fg = build_graph(odom, verified)
-    result = pgo.optimize(fg, SLICE_PGO, device=dev)
-    _sync(dev)
+    result = pgo.optimize(fg, MISSION_PGO, device=dev)
+    sync(dev)
     timings["pgo_s"] = time.perf_counter() - t0
 
     est = {r: np.stack([fg.t[fg.key_to_index[(r, k)]]

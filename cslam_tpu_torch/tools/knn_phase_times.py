@@ -75,9 +75,11 @@ def build_stamped():
                     "-o", str(lib_path)], check=True, capture_output=True,
                    timeout=_build.NVCC_TIMEOUT_S)
     lib = ctypes.CDLL(str(lib_path))
-    for name, (argtypes, restype) in _build.SIGNATURES.items():
-        getattr(lib, name).argtypes = argtypes
-        getattr(lib, name).restype = restype
+    # the copy holds this source's entry points only; the searches here
+    # launch through cosine_topk_launch
+    argtypes, restype = _build.SIGNATURES["cosine_topk_launch"]
+    lib.cosine_topk_launch.argtypes = argtypes
+    lib.cosine_topk_launch.restype = restype
     lib.set_stamps.argtypes = [ctypes.c_void_p]
     return lib
 
@@ -90,7 +92,7 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     lib = build_stamped()
-    _build._libs[False] = lib  # searches here run the stamped copy
+    _build._lib = lib  # searches here run the stamped copy
     stamps = torch.zeros(8 * 4096, dtype=torch.int64, device="cuda")
     if lib.set_stamps(stamps.data_ptr()) != 0:
         raise RuntimeError("set_stamps failed")

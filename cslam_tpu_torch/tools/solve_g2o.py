@@ -36,10 +36,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     import numpy as np
-    import torch
     from cslam_tpu_torch.backend import pgo
     from cslam_tpu_torch.backend.g2o import read_g2o, write_g2o
-    from cslam_tpu_torch.device import resolve_device
+    from cslam_tpu_torch.device import resolve_device, sync
 
     device = resolve_device("cpu" if args.cpu else "cuda")
     fg = read_g2o(args.input)
@@ -53,8 +52,7 @@ def main(argv=None):
     )
     t0 = time.perf_counter()
     result = pgo.optimize(fg, cfg, device=device)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    sync(device)
     dt = time.perf_counter() - t0
 
     w = result.weights.cpu().numpy()[:fg.num_factors]

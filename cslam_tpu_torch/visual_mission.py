@@ -31,7 +31,7 @@ from cslam_tpu_torch.frontend.rgbd_handler import CameraIntrinsics, \
     RGBDHandler
 from cslam_tpu_torch.frontend.sim import render_corner_scene
 from cslam_tpu_torch.mission import MISSION_PGO, MissionSwarm, \
-    mission_results, run_stages
+    make_pose, mission_results, run_stages
 from cslam_tpu_torch.node import SwarmNode
 from cslam_tpu_torch.ops import se3
 
@@ -60,11 +60,6 @@ class SquareWorld:
     def render(self, pose, rng):
         return render_corner_scene(pose, INTR, rng, squares_w=self.pts_w,
                                    shades=self.shades, H=H, W=W)
-
-
-def make_pose(x, y=0.0, yaw=0.0):
-    R = se3.so3_exp(torch.tensor([0.0, 0.0, yaw], dtype=torch.float32))
-    return R.numpy().astype(np.float32), np.array([x, y, 0], np.float32)
 
 
 def trajectories(n_robots, n_poses, seed=1, drift=0.03):

@@ -253,7 +253,11 @@ def test_single_call_search_matches_torch_path(cuda, dim, storage):
     {1, 5, 64}, n from 1 to 2,100 (two capacity doublings), each search
     uploading the 0 to 10 rows staged since the last, and for batches of
     3 and 20; `knn.native_searches` counts every single-call search and
-    every row is uploaded once."""
+    every row is uploaded once. The call's function object keeps the GIL
+    (a PYFUNCTYPE prototype) and the kernel library is loaded once."""
+    import ctypes
+
+    from cslam_tpu_torch import _build
     from cslam_tpu_torch.runtime.tracing import tracer
 
     rng = np.random.default_rng(dim)
@@ -293,6 +297,9 @@ def test_single_call_search_matches_torch_path(cuda, dim, storage):
     assert counts["native_searches"] == native
     assert counts["flushed_rows"] == n
     assert "fallback_searches" not in counts
+    assert db._card._fn._flags_ & ctypes._FUNCFLAG_PYTHONAPI
+    assert type(_build._lib) is ctypes.CDLL
+    assert _build.load_library() is _build._lib
 
 
 def test_single_call_search_does_not_wait_for_the_default_stream(cuda):
@@ -619,7 +626,8 @@ def test_lidar_branches_build_on_card(cuda):
     from cslam_tpu_torch.frontend.loop_closure_detection import \
         GlobalDescriptorLoopClosureDetection
     from cslam_tpu_torch.lidar_mission import DEFAULT_WORLD, LidarWorld, \
-        make_params, make_pose
+        make_params
+    from cslam_tpu_torch.mission import make_pose
     params = make_params(0, 2)
     router = InProcessRouter()
     bus = InProcessBus(router, 0)
