@@ -175,7 +175,12 @@ runs phases 1, 2, the slice (for its pose graph) and 17 alone, then the
 card line and the result line; with two cards or more, phase 17 runs
 only the NCCL mesh of one rank per card (the one-card meshes are the
 whole script's). `--only training`, `--only tooling` and `--only
-knn_host` run phases 1, 2 and that phase.
+knn_host` run phases 1, 2 and that phase. `--only lightglue_graph`
+runs phases 1, 2 and `lightglue_graph` (in no other run): the host and
+device ms of one LightGlue pair at the stereo cell's shape (9 layers,
+K = 2,048), the eager pass against the pair graph's replay, alone and
+beside the solve-like thread, and the capture's seconds
+(time_lightglue_graph).
 
 Exits non-zero, printing no result, without a CUDA card, without the
 package, or when any phase fails. Uses no JAX.
@@ -712,6 +717,149 @@ def time_knn_host(card):
                 n: float(np.median(r)) for n, r in rate.items()}
     return {"shape": {k: cfg[k] for k in ("dim", "rows")},
             "calls_per_variant": cfg["calls"] * cfg["rounds"],
+            "card": card, **res}
+
+
+# LightGlue at the stereo cell's shape: 9 layers, K = 2,048 padded with
+# the valid counts its frames hold, 1241 x 376 images; pairs of each
+# variant per round, rounds
+LIGHTGLUE_GRAPH = dict(K=2048, valid=(1700, 1500), layers=9,
+                       size=(1241, 376), calls=8, rounds=4)
+
+
+def lightglue_pair(rng, k0, k1, n0, n1, size):
+    """A padded LightGlue pair as StereoHandler passes it (numpy, the n0
+    and n1 valid slots first, n1 <= n0, pixel keypoints in `size`):
+    side 1 holds side 0's first keypoints shuffled, moved a little, with
+    noisy descriptors, so a trained matcher finds matches."""
+    desc0 = rng.standard_normal((k0, 256)).astype(np.float32)
+    desc0 /= np.linalg.norm(desc0, axis=1, keepdims=True)
+    xy0 = (rng.random((k0, 2)) * size).astype(np.float32)
+    perm = rng.permutation(n0)[:n1]
+    desc1 = rng.standard_normal((k1, 256)).astype(np.float32)
+    desc1[:n1] = desc0[perm] + 0.05 * desc1[:n1]
+    desc1 /= np.linalg.norm(desc1, axis=1, keepdims=True)
+    xy1 = (rng.random((k1, 2)) * size).astype(np.float32)
+    xy1[:n1] = xy0[perm] + rng.normal(0, 0.5, (n1, 2))
+    return (desc0, xy0, (np.arange(k0) < n0).astype(np.float32),
+            desc1, xy1, (np.arange(k1) < n1).astype(np.float32))
+
+
+def time_lightglue_graph(card):
+    """Host and device ms of one LightGlue pair at the stereo cell's
+    shape: the eager pass as the port ran it before the pair graph
+    (default stream, six pageable uploads and the size's, a launch per
+    kernel, the filter, the host copy) against LightGlue.match (one
+    staged upload, one graph replay on the matcher's stream, the filter,
+    one pinned copy), alone and beside a thread of solve-like small CUDA
+    ops; the variants interleave in rounds. Device ms, per pair: the
+    eager pass from CUDA events on the default stream before its first
+    upload and after its last kernel (its launch gaps included), the
+    replay from events around the graph alone (its kernels back to
+    back: the pair's device time). Also the first pair's seconds
+    (warm-up, capture, replay) and the capture span's, and both
+    variants' matches, which must agree."""
+    from cslam_tpu_torch.models.lightglue import LightGlue, \
+        mutual_matches, normalize_keypoints
+    from cslam_tpu_torch.runtime.tracing import tracer
+
+    cfg = LIGHTGLUE_GRAPH
+    lg = LightGlue(num_layers=cfg["layers"], rng_seed=SEED, device="cuda")
+    rng, size, K = np.random.default_rng(SEED), cfg["size"], cfg["K"]
+    pairs = [lightglue_pair(rng, K, K, *cfg["valid"], size)
+             for _ in range(4)]
+
+    def eager(args, events=None):
+        if events is not None:
+            events[0].record()
+        d0, xy0, m0, d1, xy1, m1 = (lg._tensor(a) for a in args)
+        with torch.no_grad():
+            scores = lg.model(d0, normalize_keypoints(xy0, size), m0, d1,
+                              normalize_keypoints(xy1, size), m1)
+        best1, valid = mutual_matches(scores, lg._tensor(args[2]),
+                                      lg.score_threshold)
+        packed = torch.stack([best1.to(torch.float32),
+                              valid.to(torch.float32)])
+        if events is not None:
+            events[1].record()
+        out = packed.cpu().numpy()
+        return out[0].astype(np.int32), out[1]
+
+    tracer.clear()
+    tracer.enable(None)
+    try:
+        t = time.perf_counter()
+        lg.match(*pairs[0], size=size)
+        first_pair_s = time.perf_counter() - t
+        capture_s = tracer.totals()["lightglue_capture"]["seconds"]
+    finally:
+        tracer.disable()
+        tracer.clear()
+    for args in pairs:  # warm, and the same matches
+        want, got = eager(args), lg.match(*args, size=size)
+        if not (np.array_equal(want[0], got[0]) and
+                np.array_equal(want[1], got[1])):
+            raise AssertionError("LightGlue: the replay's matches differ "
+                                 "from the eager pass's")
+    (entry,) = lg._graphs.values()
+
+    def replay_ms():
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        with torch.cuda.stream(lg._stream):
+            e0.record()
+            entry.graph.replay()
+            e1.record()
+        e1.synchronize()
+        return e0.elapsed_time(e1)
+
+    res = {}
+    for setting in ("alone", "beside_solve_thread"):
+        stop, ops = threading.Event(), [0]
+        other = None
+        if setting != "alone":
+            other = threading.Thread(target=_solve_like, args=(stop, ops),
+                                     daemon=True)
+            other.start()
+            time.sleep(0.2)
+        host = {"eager": [], "graph": []}
+        device = {"eager": [], "graph": []}
+        rate = {"eager": [], "graph": []}
+        for _ in range(cfg["rounds"]):
+            for name in ("eager", "graph"):
+                ops0, t_round = ops[0], time.perf_counter()
+                for j in range(cfg["calls"]):
+                    args = pairs[j % len(pairs)]
+                    if name == "eager":
+                        events = [torch.cuda.Event(enable_timing=True)
+                                  for _ in range(2)]
+                        t = time.perf_counter()
+                        eager(args, events)
+                        host[name].append(time.perf_counter() - t)
+                        device[name].append(
+                            events[0].elapsed_time(events[1]))
+                    else:
+                        t = time.perf_counter()
+                        lg.match(*args, size=size)
+                        host[name].append(time.perf_counter() - t)
+                        device[name].append(replay_ms())
+                rate[name].append((ops[0] - ops0) /
+                                  (time.perf_counter() - t_round))
+        stop.set()
+        if other is not None:
+            other.join()
+        res[setting] = {
+            "host_ms": {n: {k: v / 1e3 for k, v in
+                            _percentiles_us(t).items()}
+                        for n, t in host.items()},
+            "device_ms": {n: {k: float(v) for k, v in zip(
+                ("p50", "p90"), np.percentile(d, [50, 90]))}
+                for n, d in device.items()}}
+        if other is not None:
+            res[setting]["solve_thread_ops_per_s"] = {
+                n: float(np.median(r)) for n, r in rate.items()}
+    return {"shape": {k: cfg[k] for k in ("K", "valid", "layers", "size")},
+            "pairs_per_variant": cfg["calls"] * cfg["rounds"],
+            "first_pair_s": first_pair_s, "capture_s": capture_s,
             "card": card, **res}
 
 
@@ -3901,7 +4049,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description="Smoke run of the port "
                                      "on the card(s); see the docstring.")
     parser.add_argument("--only", choices=["multichip", "training",
-                                           "tooling", "knn_host"],
+                                           "tooling", "knn_host",
+                                           "lightglue_graph"],
                         default=None,
                         help="run the device and build phases and this "
                              "phase alone (multichip: with the slice, for "
@@ -3948,14 +4097,16 @@ def main(argv=None):
         raise AssertionError("the bf16 kernel has no HMMA instruction")
     if hmma_f32:
         raise AssertionError("the f32 kernel uses the tensor cores")
-    if args.only in ("training", "tooling", "knn_host"):
+    if args.only in ("training", "tooling", "knn_host", "lightglue_graph"):
         t0 = time.perf_counter()
         if args.only == "training":
             phase("training", t0, **run_training_phase("cuda"))
         elif args.only == "tooling":
             phase("tooling", t0, **run_tooling_phase("cuda"))
-        else:
+        elif args.only == "knn_host":
             phase("knn_host", t0, **time_knn_host(card))
+        else:
+            phase("lightglue_graph", t0, **time_lightglue_graph(card))
         emit({"total_elapsed_s": round(time.perf_counter() - T_START, 3)})
         print(card, flush=True)
         emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -21,9 +21,22 @@ Padded keypoint slots are masked with -1e9 logits in every softmax and
 -inf in the scores, so fixed budgets match the unpadded model. Every
 module takes leading batch dimensions. Matrix products are f32 at full
 precision (TF32 off on the card, checked per forward).
+
+On the card the runtime wrapper `LightGlue` runs each pair as one CUDA
+graph replay (`_PairGraph`), captured at the first pair of each shape
+(K0, K1) and replayed on the wrapper's own non-blocking stream: the
+six inputs and the image size go up in one copy from a pinned buffer,
+the replay runs the eager forward's kernels, and the scores come back as
+a tensor of the pair's own. A capture is the span `lightglue_capture`;
+the counter `lightglue` adds `graph_captures` and `graph_replays`. The
+CPU runs the forward eagerly, and `LightGlueNet` itself (the trainers')
+is always eager.
 """
 
+import contextlib
 import math
+import threading
+from collections import OrderedDict
 from typing import Any, Optional
 
 import numpy as np
@@ -35,8 +48,12 @@ from cslam_tpu_torch.device import DeviceLike, require_full_fp32, \
     resolve_device
 from cslam_tpu_torch.models import convert
 from cslam_tpu_torch.models.cosplace import flax_init_, load_flat_weights
+from cslam_tpu_torch.runtime.tracing import span, tracer
 
 _NEG = -1e9
+# captured pair shapes kept per matcher, the least recently used dropped
+# first (a stereo cell meets one; chip_smoke and the tests a few more)
+_GRAPH_CACHE_SIZE = 4
 
 
 def normalize_keypoints(kpts, size):
@@ -228,11 +245,83 @@ def mutual_matches(scores, m0, threshold):
     return best1, valid
 
 
+class _PairGraph:
+    """One LightGlue pass at (K0, K1) captured as a CUDA graph, from the
+    staged inputs to the log-assignment scores. The inputs live in one
+    device buffer, filled by one copy from a pinned host buffer of the
+    same layout: both sides' descriptors, pixel keypoints and masks, the
+    image size (W, H) and whether it was given (else the keypoints'
+    bounds are taken, in the graph, as in eager mode). The graph reads
+    the model's parameters in place, so a load_state_dict after the
+    capture shows in the next replay. On the CPU (tests) stage() and
+    forward() run uncaptured."""
+
+    def __init__(self, model, dev, k0, k1, dim):
+        shapes = [(k0, dim), (k0, 2), (k0,), (k1, dim), (k1, 2), (k1,),
+                  (2,), (1,)]
+        sizes = [math.prod(s) for s in shapes]
+        self.host = torch.empty(sum(sizes), dtype=torch.float32,
+                                pin_memory=dev.type == "cuda")
+        self.dev = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+        self.host_in = [t.view(s).numpy() for t, s in
+                        zip(torch.split(self.host, sizes), shapes)]
+        self.dev_in = [t.view(s) for t, s in
+                       zip(torch.split(self.dev, sizes), shapes)]
+        self.model = model
+        self.graph = None
+        self.out = None
+
+    def stage(self, stream, args, size):
+        """Write the inputs into the pinned buffer and copy it up on
+        `stream` (the buffer is free: the last call synchronized it);
+        card tensors among them are copied on the device."""
+        on_card = []
+        for host, dev, x in zip(self.host_in, self.dev_in,
+                                list(args) + [size]):
+            if torch.is_tensor(x) and x.is_cuda:
+                on_card.append((dev, x))
+            elif x is not None:
+                host[...] = x.detach().numpy() if torch.is_tensor(x) else x
+        self.host_in[-1][0] = size is not None
+        with torch.cuda.stream(stream):
+            self.dev.copy_(self.host, non_blocking=True)
+            for dev, x in on_card:
+                dev.copy_(x)
+
+    def forward(self):
+        d0, xy0, m0, d1, xy1, m1, size, given = self.dev_in
+        bounds = torch.clamp(torch.amax(torch.cat([xy0, xy1]), dim=0),
+                             min=1.0)
+        size = torch.where(given > 0, size, bounds)
+        return self.model(d0, normalize_keypoints(xy0, size), m0, d1,
+                          normalize_keypoints(xy1, size), m1)
+
+    def capture(self, stream, pool):
+        """Capture forward() on `stream` into `pool`, after one uncaptured
+        run there (cuBLAS's handle and workspace are made outside the
+        capture)."""
+        with torch.cuda.stream(stream):
+            self.forward()
+        graph = torch.cuda.CUDAGraph()
+        # capture_begin / capture_end as torch.cuda.graph calls them,
+        # without its device-wide synchronize and empty_cache (they wait
+        # for the solve's worker thread); thread_local: that thread keeps
+        # launching
+        with torch.cuda.stream(stream):
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                self.out = self.forward()
+            finally:
+                graph.capture_end()
+        self.graph = graph
+
+
 class LightGlue:
     """Runtime wrapper exposing mutual_match-compatible matching.
 
     device: where the network runs (None = the CUDA card; raises
-    without one)."""
+    without one). On the card each pair is one CUDA graph replay on the
+    wrapper's own stream (module docstring)."""
 
     def __init__(self, checkpoint: str = "", dim: int = 256,
                  num_layers: int = 9, score_threshold: float = 0.1,
@@ -255,6 +344,12 @@ class LightGlue:
         else:
             flax_init_(self.model, rng_seed)
         self.model.eval().to(self.device)
+        self.input_dim = input_dim
+        self._stream = (torch.cuda.Stream(self.device)
+                        if self.device.type == "cuda" else None)
+        self._graphs = OrderedDict()  # (K0, K1, TF32 on) -> _PairGraph
+        self._pool = None
+        self._lock = threading.Lock()
 
     def _tensor(self, x, dtype=torch.float32):
         if torch.is_tensor(x):
@@ -265,7 +360,11 @@ class LightGlue:
     def scores(self, desc0, xy0, m0, desc1, xy1, m1,
                size: Optional[Any] = None):
         """Log-assignment scores (K0, K1) on the device; xy in pixels,
-        normalized by `size` (W, H) or else by the keypoints' bounds."""
+        normalized by `size` (W, H) or else by the keypoints' bounds.
+        On the card: one graph replay, and a tensor that no later pair
+        overwrites, complete when returned."""
+        if self._stream is not None:
+            return self._replay((desc0, xy0, m0, desc1, xy1, m1), size)
         xy0, xy1 = self._tensor(xy0), self._tensor(xy1)
         if size is None:
             size = torch.clamp(torch.amax(torch.cat([xy0, xy1]), dim=0),
@@ -276,13 +375,58 @@ class LightGlue:
                 self._tensor(m0), self._tensor(desc1),
                 normalize_keypoints(xy1, size), self._tensor(m1))
 
+    def _replay(self, args, size):
+        """The scores of one pair by its shape's graph, captured first
+        where the shape (or the TF32 mode) is new."""
+        k0, k1 = len(args[0]), len(args[3])
+        key = (k0, k1, torch.backends.cuda.matmul.allow_tf32)
+        stream = self._stream
+        with self._lock, torch.cuda.device(self.device), torch.no_grad():
+            entry = self._graphs.get(key)
+            if entry is None:
+                entry = self._graphs[key] = _PairGraph(
+                    self.model, self.device, k0, k1, self.input_dim)
+                while len(self._graphs) > _GRAPH_CACHE_SIZE:
+                    self._graphs.popitem(last=False)
+            self._graphs.move_to_end(key)
+            # the caller's writes (weights loaded, card inputs) first
+            stream.wait_stream(torch.cuda.current_stream())
+            entry.stage(stream, args, size)
+            if entry.graph is None:
+                with span("lightglue_capture", k0=k0, k1=k1):
+                    if self._pool is None:
+                        self._pool = torch.cuda.graph_pool_handle()
+                    require_full_fp32(self.device)
+                    entry.capture(stream, self._pool)
+                tracer.counter("lightglue", graph_captures=1)
+            require_full_fp32(self.device)
+            with torch.cuda.stream(stream):
+                entry.graph.replay()
+                scores = entry.out.clone()
+            stream.synchronize()
+        tracer.counter("lightglue", graph_replays=1)
+        return scores
+
+    def _on_stream(self):
+        return (contextlib.nullcontext() if self._stream is None
+                else torch.cuda.stream(self._stream))
+
     def match(self, desc0, xy0, m0, desc1, xy1, m1,
               size: Optional[Any] = None):
         """(idx1_for_0 int32, valid float32) as numpy, like
-        ops.matching2d.mutual_match."""
+        ops.matching2d.mutual_match: the mutual filter of what
+        `self.scores` returns; on the card on the wrapper's stream, the
+        two results packed into one copy to pinned memory."""
         scores = self.scores(desc0, xy0, m0, desc1, xy1, m1, size=size)
-        best1, valid = mutual_matches(scores, self._tensor(m0),
-                                      self.score_threshold)
-        out = torch.stack([best1.to(torch.float32),
-                           valid.to(torch.float32)]).cpu().numpy()
-        return out[0].astype(np.int32), out[1]
+        with self._on_stream():
+            best1, valid = mutual_matches(scores, self._tensor(m0),
+                                          self.score_threshold)
+            packed = torch.stack([best1.to(torch.float32),
+                                  valid.to(torch.float32)])
+            out = torch.empty(packed.shape, dtype=torch.float32,
+                              pin_memory=self._stream is not None)
+            out.copy_(packed, non_blocking=True)
+        if self._stream is not None:
+            self._stream.synchronize()
+        out = out.numpy()
+        return out[0].astype(np.int32), out[1].copy()

@@ -13,7 +13,11 @@ lidar slice (voxel grid, Scan Context, FPFH, GNC-ICP, registration at
 multi-device layer: the row-sharded search through the kernel in every
 rank and the factor-sharded solve against the single card, on meshes of
 1 (NCCL) and 2 (gloo, sharing cuda:0) ranks, and of one rank per card
-(NCCL) where there are 2 cards or more.
+(NCCL) where there are 2 cards or more; and LightGlue's pair graph
+against its eager forward at the stereo cell's K = 2,048 (scores, the
+matches, captures per shape, each pair's own scores, a wrapper on the
+instance's `scores`, weights loaded after a capture, a capture beside a
+busy thread, TF32 captured apart).
 
 Every test here needs a card: marked `cuda`, skipped (in a fixture, not
 at import) where there is none. On the card, without JAX installed:
@@ -1053,3 +1057,204 @@ def test_fw_graph_capture_beside_a_solve(cuda):
     w_e, u_e, it_e = _fw(functools.partial(_eager_fw, tmac, mac), tmac,
                          mac, pb, w0, k, 20)
     assert it_g == it_e and torch.equal(w_g, w_e) and torch.equal(u_g, u_e)
+
+
+# -- LightGlue: one CUDA graph a pair -----------------------------------------
+
+LG_SIZE = (1241, 376)
+
+
+@pytest.fixture
+def lg_traced():
+    """The process-wide tracer, on and empty; off and empty after."""
+    from cslam_tpu_torch.runtime.tracing import tracer
+    tracer.clear()
+    tracer.enable(None)
+    try:
+        yield tracer
+    finally:
+        tracer.disable()
+        tracer.clear()
+
+
+def _lg(cuda, seed=0, layers=9):
+    from cslam_tpu_torch.models.lightglue import LightGlue
+    return LightGlue(num_layers=layers, rng_seed=seed, device=cuda)
+
+
+def _lg_pair(seed, k=2048):
+    """A padded pair as StereoHandler passes it, 1,300-1,900 of 2,048
+    slots valid a side (chip_smoke.lightglue_pair)."""
+    rng = np.random.default_rng(seed)
+    n1, n0 = sorted(int(n) for n in rng.integers(k * 1300 // 2048,
+                                                 k * 1900 // 2048 + 1, 2))
+    return _chip_smoke().lightglue_pair(rng, k, k, n0, n1, LG_SIZE)
+
+
+def _lg_eager(lg, args, size):
+    """The eager forward and filter on the default stream: (scores,
+    idx1 int32, valid float32)."""
+    from cslam_tpu_torch.models.lightglue import mutual_matches, \
+        normalize_keypoints
+    t = [torch.from_numpy(a).to("cuda") for a in args]
+    if size is None:
+        size = torch.clamp(torch.amax(torch.cat([t[1], t[4]]), dim=0),
+                           min=1.0)
+    with torch.no_grad():
+        s = lg.model(t[0], normalize_keypoints(t[1], size), t[2], t[3],
+                     normalize_keypoints(t[4], size), t[5])
+    best1, valid = mutual_matches(s, t[2], lg.score_threshold)
+    return (s, best1.cpu().numpy().astype(np.int32),
+            valid.cpu().numpy().astype(np.float32))
+
+
+def _assert_lg_close(got, ref):
+    """Same -inf pattern, finite entries within 1e-6 relative."""
+    fin = torch.isfinite(ref)
+    assert torch.equal(fin, torch.isfinite(got))
+    assert torch.equal(torch.isneginf(ref), torch.isneginf(got))
+    err = float(((got[fin] - ref[fin]).abs() / (1.0 + ref[fin].abs())).max())
+    assert err <= 1e-6, err
+
+
+def _lg_counts(traced):
+    return traced.counter_totals().get("lightglue", {})
+
+
+def test_lightglue_graph_matches_eager(cuda, lg_traced):
+    """At K = 2,048: the replay's scores against the eager forward's,
+    size given and taken from the bounds, four pairs through one graph
+    and a fifth handed over as card tensors;
+    match's idx1 and valid against the eager filter; a second shape (K =
+    512) adds exactly one capture."""
+    lg = _lg(cuda)
+    calls = 0
+    for seed, size in ((0, LG_SIZE), (1, None), (2, LG_SIZE), (3, None)):
+        args = _lg_pair(seed)
+        ref, best1, valid = _lg_eager(lg, args, size)
+        _assert_lg_close(lg.scores(*args, size=size), ref)
+        idx1, got_valid = lg.match(*args, size=size)
+        assert np.array_equal(got_valid, valid)
+        assert np.array_equal(idx1, best1)
+        calls += 2
+    # inputs already on the card, the size as a card tensor
+    args = _lg_pair(15)
+    on_card = [torch.from_numpy(a).to(cuda) for a in args]
+    _assert_lg_close(lg.scores(*on_card, size=torch.tensor(
+        LG_SIZE, dtype=torch.float32, device=cuda)),
+        _lg_eager(lg, args, LG_SIZE)[0])
+    calls += 1
+    assert _lg_counts(lg_traced) == {"graph_captures": 1,
+                                     "graph_replays": calls}
+    args = _lg_pair(4, k=512)
+    _assert_lg_close(lg.scores(*args, size=LG_SIZE),
+                     _lg_eager(lg, args, LG_SIZE)[0])
+    assert _lg_counts(lg_traced) == {"graph_captures": 2,
+                                     "graph_replays": calls + 1}
+
+
+def test_lightglue_scores_are_the_pairs_own(cuda):
+    """The tensor returned for pair A is unchanged by pair B's replay."""
+    lg = _lg(cuda)
+    a = lg.scores(*_lg_pair(5), size=LG_SIZE)
+    kept = a.clone()
+    b = lg.scores(*_lg_pair(6), size=LG_SIZE)
+    torch.cuda.synchronize()
+    assert torch.equal(a, kept) and not torch.equal(a, b)
+
+
+def test_lightglue_wrapper_on_the_instance_sees_every_match(cuda):
+    """A wrapper set on the instance's `scores` (as the benchmark's is)
+    sees every match, and what it kept is each pair's own answer."""
+    lg = _lg(cuda)
+    scores, seen = lg.scores, []
+
+    def wrapped(*a, size=None):
+        out = scores(*a, size=size)
+        seen.append((a, size, out))
+        return out
+    lg.scores = wrapped
+    pairs = [(_lg_pair(7), LG_SIZE), (_lg_pair(8), None),
+             (_lg_pair(9, k=512), LG_SIZE)]
+    for args, size in pairs:
+        lg.match(*args, size=size)
+    assert len(seen) == len(pairs)
+    for a, size, out in seen:
+        _assert_lg_close(out, _lg_eager(lg, a, size)[0])
+
+
+@pytest.mark.parametrize("where", ["cpu", "cuda"])
+def test_lightglue_graph_takes_weights_loaded_after_capture(cuda, where):
+    """load_state_dict after the capture (from host tensors, or from card
+    tensors: copies queued on the default stream) shows in the next
+    replay's scores."""
+    lg = _lg(cuda)
+    args = _lg_pair(10)
+    before = lg.scores(*args, size=LG_SIZE)
+    state = {k: v.to(where) for k, v in
+             _lg(cuda, seed=1).model.state_dict().items()}
+    lg.model.load_state_dict(state)
+    after = lg.scores(*args, size=LG_SIZE)
+    _assert_lg_close(after, _lg_eager(lg, args, LG_SIZE)[0])
+    fin = torch.isfinite(before)
+    assert not torch.equal(after[fin], before[fin])
+
+
+def test_lightglue_graph_replay_reads_nothing_back(cuda):
+    """A replay synchronizes with nothing (sync debug mode "error")."""
+    lg = _lg(cuda)
+    lg.scores(*_lg_pair(11, k=512), size=LG_SIZE)
+    (entry,) = lg._graphs.values()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.cuda.stream(lg._stream):
+            for _ in range(3):
+                entry.graph.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_lightglue_graph_keys_on_tf32(cuda, monkeypatch, lg_traced):
+    """With TF32 allowed (chip_smoke's control lifts the fp32 check) the
+    pair gets a graph of its own in TF32, which answers otherwise; back
+    in fp32 the first graph answers as before."""
+    from cslam_tpu_torch.models import lightglue
+    lg = _lg(cuda)
+    args = _lg_pair(12, k=512)
+    f32 = lg.scores(*args, size=LG_SIZE)
+    monkeypatch.setattr(lightglue, "require_full_fp32",
+                        lambda device=None: None)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = lg.scores(*args, size=LG_SIZE)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.undo()
+    fin = torch.isfinite(f32)
+    assert float((tf32[fin] - f32[fin]).abs().max()) > 1e-5
+    assert torch.equal(lg.scores(*args, size=LG_SIZE), f32)
+    assert _lg_counts(lg_traced) == {"graph_captures": 2,
+                                     "graph_replays": 3}
+
+
+def test_lightglue_capture_beside_a_busy_thread(cuda):
+    """A capture and replays taken while another thread launches small
+    ops on the default stream and reads back now and then (as the
+    back-end's solve does) equal the eager forward."""
+    import threading
+    cs = _chip_smoke()
+    stop, ops = threading.Event(), [0]
+    th = threading.Thread(target=cs._solve_like, args=(stop, ops),
+                          daemon=True)
+    th.start()
+    try:
+        lg = _lg(cuda)
+        got = [(args, lg.scores(*args, size=LG_SIZE))
+               for args in (_lg_pair(13), _lg_pair(14))]
+    finally:
+        stop.set()
+        th.join(60)
+    assert ops[0] > 0 and not th.is_alive()
+    for args, out in got:
+        _assert_lg_close(out, _lg_eager(lg, args, LG_SIZE)[0])
