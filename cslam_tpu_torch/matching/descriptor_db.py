@@ -8,7 +8,9 @@ values as stored.
 
 Adds are staged: `add_item` writes the row, rounded to the storage
 dtype, and its norm into host staging buffers (pinned on a CUDA card)
-and issues no device work. The next read of the device buffer (a
+and issues no device work. The stage holds 64 rows up to 128 KiB of
+them (512-d float32), and at least 16 at any width (a gossip message
+carries up to 10 descriptors): 16 rows, 256 KiB, at 4,096-d float32. The next read of the device buffer (a
 search, `data`, capacity growth, or a full stage) uploads every
 pending row in one copy. On a CUDA database searched by the kernel
 ("pallas"), a search of k <= KMAX is one native call on the database's
@@ -41,7 +43,11 @@ from cslam_tpu_torch.ops.knn_pallas import KMAX, CardSearch
 from cslam_tpu_torch.runtime.tracing import span, tracer
 
 _INITIAL_CAPACITY = 1024
-_STAGE_ROWS = 64  # pending rows a database holds before it uploads them
+# pending rows a database holds before it uploads them: the most, the
+# fewest, and the bytes that bound them between the two
+_STAGE_ROWS = 64
+_STAGE_ROWS_MIN = 16
+_STAGE_BYTES = 1 << 17
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -124,15 +130,19 @@ class DescriptorDatabase:
 
     def _alloc(self, dim: int):
         self.dim = dim
+        row = dim * torch.finfo(self._dtype).bits // 8
+        self._stage_rows = min(_STAGE_ROWS,
+                               max(_STAGE_ROWS_MIN, _STAGE_BYTES // row))
         with self._on_stream():
             self._data = torch.zeros((self._capacity, dim),
                                      dtype=self._dtype, device=self.device)
             self._norms = torch.zeros((self._capacity,), dtype=torch.float32,
                                       device=self.device)
         pin = self._stream is not None
-        self._stage = torch.empty((_STAGE_ROWS, dim), dtype=self._dtype,
+        self._stage = torch.empty((self._stage_rows, dim), dtype=self._dtype,
                                   pin_memory=pin)
-        self._stage_norms = torch.empty((_STAGE_ROWS,), dtype=torch.float32,
+        self._stage_norms = torch.empty((self._stage_rows,),
+                                        dtype=torch.float32,
                                         pin_memory=pin)
         self._stage_np = (self._stage.numpy()
                           if self._dtype == torch.float32 else
@@ -211,7 +221,7 @@ class DescriptorDatabase:
                                  f"database dim {self.dim}")
             if self.n >= self._capacity:
                 self._grow()
-            elif self.n - self._flushed == _STAGE_ROWS:
+            elif self.n - self._flushed == self._stage_rows:
                 self._flush()
             j = self.n - self._flushed
             if self._dtype == torch.float32:

@@ -13,6 +13,12 @@ pooling product and normalizations), and so is the PCA projection,
 which runs on the model's device (`torch.matmul` in full f32: every
 forward on a CUDA tensor checks that no fp32 product or convolution
 may run in TF32).
+
+The projection's rows are the published descriptor's width: a PCA file
+whose rows differ from `frontend.global_descriptor_dim` raises when the
+wrapper is built. Counter `visual.netvlad_images` adds the images of
+each batch embedded; the `descriptor_forward` span carries the batch's
+shape (`images`, `crop`, `clusters`, `pca_dim`, 0 without a projection).
 """
 
 import numpy as np
@@ -25,7 +31,7 @@ from cslam_tpu_torch.device import DeviceLike, require_full_fp32, \
 from cslam_tpu_torch.models import convert, zoo
 from cslam_tpu_torch.models.cosplace import Conv, at_least_f32, embed, \
     flax_init_, l2_normalize, load_flat_weights, preprocess, to_device
-from cslam_tpu_torch.runtime.tracing import span
+from cslam_tpu_torch.runtime.tracing import span, tracer
 
 VGG16_CFG = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
              512, 512, 512, "M", 512, 512, 512]
@@ -139,9 +145,24 @@ class NetVLAD:
                         np.asarray(data["mean"])).to(self.device)
                     self.pca_components = torch.from_numpy(
                         np.asarray(data["components"])).to(self.device)
+            self._check_projection()
         else:
             flax_init_(self.model, rng_seed)
         self.model.eval().to(self.device)
+
+    def _check_projection(self):
+        """The projection maps the VLAD vector to the configured width."""
+        if self.pca_components is None:
+            return
+        rows, cols = self.pca_components.shape
+        vlad = self.model.pool.num_clusters * 512
+        if rows != self.descriptor_dim or cols != vlad or \
+                tuple(self.pca_mean.shape) != (vlad,):
+            raise ValueError(
+                f"NetVLAD projection {self.pca_checkpoint} maps {cols} -> "
+                f"{rows} (mean {tuple(self.pca_mean.shape)}), but the "
+                f"VLAD vector has {vlad} entries and "
+                f"frontend.global_descriptor_dim is {self.descriptor_dim}")
 
     def compute_embedding(self, image: np.ndarray) -> np.ndarray:
         if not self.enabled:
@@ -151,15 +172,21 @@ class NetVLAD:
 
     def compute_embeddings_batch(self, images: np.ndarray) -> np.ndarray:
         """Batched descriptors: one forward over all pending keyframes,
-        then the PCA projection and L2 norm on the same device."""
+        then the PCA projection and L2 norm on the same device. Counter
+        `visual.netvlad_images` adds the batch's images."""
         if not self.enabled:
             v = self._rng.standard_normal(
                 (len(images), self.descriptor_dim))
             return (v / np.linalg.norm(v, axis=1, keepdims=True)).astype(
                 np.float32)
+        tracer.counter("visual", netvlad_images=len(images))
         with span("descriptor_preprocess", images=len(images)):
             batch = preprocess(images, self.crop_size)
-        with span("descriptor_forward", images=len(batch)), \
+        pca_dim = 0 if self.pca_components is None else \
+            int(self.pca_components.shape[0])
+        with span("descriptor_forward", images=len(batch),
+                  crop=int(self.crop_size),
+                  clusters=self.model.pool.num_clusters, pca_dim=pca_dim), \
                 torch.no_grad():
             if self.pca_components is None:
                 return embed(self.model, batch, self.device)

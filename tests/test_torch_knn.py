@@ -329,6 +329,49 @@ def test_staged_adds_across_growth_match_eager_and_reference(method,
     assert torch.equal(staged._norms, eager._norms)
 
 
+@pytest.mark.parametrize("dim,storage,rows", [(64, "float32", 64),
+                                              (512, "float32", 64),
+                                              (512, "bfloat16", 64),
+                                              (4096, "float32", 16),
+                                              (4096, "bfloat16", 16)])
+def test_stage_is_sized_by_the_row_width(dim, storage, rows):
+    """The stage holds 64 rows up to 128 KiB and at least 16 (a gossip
+    message's 10 descriptors fit): 16 at 4,096-d. At 4,096-d, 0 to 20
+    adds between searches (past the stage: an upload before the search)
+    give the same items and similarities, bit for bit, as a database
+    whose every add is uploaded at once, and the exact best by a float64
+    product."""
+    staged, eager = [DescriptorDatabase(dim=dim, method="pallas",
+                                        storage=storage, device="cpu")
+                     for _ in range(2)]
+    assert staged._stage_rows == rows
+    assert staged._stage.shape == (rows, dim)
+    assert staged._stage_norms.shape == (rows,)
+    if dim != 4096:
+        return
+    rng = np.random.default_rng(22)
+    kept, n = [], 0
+    for pending in (3, 20, 0, 16, 17, 1):
+        for _ in range(pending):
+            v = _unit(rng, dim)
+            for db in (staged, eager):
+                db.add_item(v, n)
+            eager.data
+            kept.append(v)
+            n += 1
+        assert staged.n - staged._flushed <= rows
+        q = _unit(rng, dim)
+        items_s, sims_s = staged.search(q, 3)
+        items_e, sims_e = eager.search(q, 3)
+        assert staged._flushed == staged.n
+        assert items_s == items_e
+        np.testing.assert_array_equal(sims_s, sims_e)
+        if storage == "float32":
+            exact = np.stack(kept).astype(np.float64) @ q.astype(np.float64)
+            assert items_s[0] == int(np.argmax(exact))
+    assert torch.equal(staged.data, eager.data)
+
+
 def test_bf16_staging_rounds_like_torch():
     """The staged bf16 bits are torch's rounding of the same float32
     values: nearest, ties to even, overflow to infinity; NaN stays NaN."""
